@@ -1,0 +1,39 @@
+"""hybrid_gmres_tpu_torch — the PyTorch + CUDA port of ``hybrid_gmres_tpu``.
+
+The JAX package beside it is the reference; this package mirrors its module
+paths and public names so each counterpart is easy to find.  It imports
+``torch``, ``numpy`` and ``scipy`` only — never ``jax``.
+
+On the CUDA path the bucketed block-ELL SpMV runs as a hand-written Hopper
+kernel (``csrc/bucket_spmv.cu``, built with ``nvcc`` at first use); on CPU
+tensors every operator uses its plain PyTorch version.
+
+Imports are lazy: ``import hybrid_gmres_tpu_torch`` loads no solver until a
+name below is first used.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "LinearOperator": "hybrid_gmres_tpu_torch.ops.linear_operator",
+    "DenseOperator": "hybrid_gmres_tpu_torch.ops.linear_operator",
+    "as_operator": "hybrid_gmres_tpu_torch.ops.linear_operator",
+    "BlockELLOperator": "hybrid_gmres_tpu_torch.ops.spmv_cuda",
+    "ct_mismatched": "hybrid_gmres_tpu_torch.problems.ct",
+    "ct_gpu_operators": "hybrid_gmres_tpu_torch.problems.ct",
+    "GMRESResult": "hybrid_gmres_tpu_torch.solvers.common",
+    "ab_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
+    "ba_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        return getattr(importlib.import_module(_EXPORTS[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,17 @@
+from hybrid_gmres_tpu_torch.krylov.arnoldi import (
+    ArnoldiState,
+    arnoldi_orthogonalize,
+    arnoldi_step,
+)
+from hybrid_gmres_tpu_torch.krylov.projected import (
+    projected_ls_solve,
+    projected_tikhonov_solve,
+)
+
+__all__ = [
+    "ArnoldiState",
+    "arnoldi_orthogonalize",
+    "arnoldi_step",
+    "projected_ls_solve",
+    "projected_tikhonov_solve",
+]

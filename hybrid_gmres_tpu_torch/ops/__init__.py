@@ -1,0 +1,19 @@
+from hybrid_gmres_tpu_torch.ops.ordering import (
+    inverse_perm,
+    morton_perm,
+    reorder_pair,
+)
+from hybrid_gmres_tpu_torch.ops.linear_operator import (
+    LinearOperator,
+    DenseOperator,
+    as_operator,
+)
+
+__all__ = [
+    "LinearOperator",
+    "DenseOperator",
+    "as_operator",
+    "inverse_perm",
+    "morton_perm",
+    "reorder_pair",
+]

@@ -1,0 +1,280 @@
+"""Block-ELL SpMV on the card: kernel wrapper, plain versions, operator.
+
+Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
+
+  * :func:`bucket_matvec` replaces the Pallas kernel ``_bucket_matvec`` and
+    its wrapper ``bucketed_bsr_matvec`` (K1).  On a CUDA tensor it launches
+    the hand-written kernel in ``csrc/bucket_spmv.cu`` once per operator
+    application (un-sort and row scale fused into its epilogue) or raises;
+    on a CPU tensor it calls :func:`bucket_matvec_plain`.
+  * K2 (``_bucket_matmat``), K3 (``_bucket_rmatvec``) and K4
+    (``_bucket_rmatmat``) are not ported yet: on a CUDA tensor the paths
+    that need them raise ``NotImplementedError``; on CPU they use plain
+    versions.  See ROADMAP queue 2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
+from hybrid_gmres_tpu_torch.ops.sparse import (
+    BucketedBlockELL,
+    bucketed_block_ell_from_csr,
+)
+
+# kernel dtype codes, matching bucket_spmv.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_BLOCK_ROWS = (8, 16, 32)
+
+_K2_TODO = ("K2 (_bucket_matmat, multi-RHS SpMM) is not ported to CUDA yet: "
+            "see ROADMAP queue 2")
+_K3_TODO = ("K3 (_bucket_rmatvec, transposed SpMV from the forward panel) is "
+            "not ported to CUDA yet: build the operator with with_adjoint="
+            "True, or see ROADMAP queue 2")
+_K4_TODO = ("K4 (_bucket_rmatmat, multi-RHS transposed SpMM) is not ported "
+            "to CUDA yet: see ROADMAP queue 2")
+
+
+def bucket_matvec_plain(bell: BucketedBlockELL, x, scale=None):
+    """Plain PyTorch ``y = diag(scale) A x``: gather + einsum per bucket,
+    concatenate, un-sort through ``inv_perm`` (the twin of the JAX reference
+    ``BucketedBlockELL.matvec``).  Accumulates in float32; returns
+    ``x.dtype``.  The row scale is applied in float32 before that cast, as
+    the kernel's epilogue does."""
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    x_pad = torch.zeros(bell.ncb * bc, dtype=torch.float32, device=x.device)
+    x_pad[:n] = x.to(torch.float32)
+    xg2 = x_pad.view(bell.ncb, bc)
+    ys = []
+    for blocks, bcols in bell.buckets:
+        xg = xg2[bcols.long()]                      # (nbr_b, maxb_b, bc)
+        ys.append(torch.einsum("rbij,rbj->ri", blocks.to(torch.float32), xg))
+    y_sorted = torch.cat(ys, dim=0)                  # (positions, br)
+    y = y_sorted[bell.inv_perm].reshape(-1)[:m]
+    if scale is not None:
+        y = scale * y
+    return y.to(x.dtype)
+
+
+def bucket_matvec(bell: BucketedBlockELL, x, scale=None):
+    """``y = diag(scale) A x`` through K1: the CUDA kernel for a CUDA ``x``,
+    the plain version for a CPU ``x``.
+
+    One launch per call; ``bucket_matvec.launches`` counts them (the count
+    moves only where the kernel is launched)."""
+    if x.device.type == "cpu":
+        return bucket_matvec_plain(bell, x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"bucket_matvec: unsupported device {x.device}")
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    code = _DTYPE_CODES.get(bell.dtype)
+    if code is None:
+        raise TypeError(f"bucket_matvec: no kernel for {bell.dtype} blocks")
+    if br not in _BLOCK_ROWS or bc % 32 or not 32 <= bc <= 1024:
+        raise ValueError(f"bucket_matvec: block {(br, bc)} not supported "
+                         f"(rows in {_BLOCK_ROWS}, cols a multiple of 32)")
+    if x.shape != (n,):
+        raise ValueError(f"bucket_matvec: x has shape {tuple(x.shape)}, "
+                         f"operator has {n} columns")
+    if bell.device != x.device:
+        raise ValueError(f"bucket_matvec: panel on {bell.device}, x on "
+                         f"{x.device}")
+    x32 = x.to(torch.float32).contiguous()
+    if scale is not None:
+        scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+        if scale.shape != (m,):
+            raise ValueError("bucket_matvec: scale must have shape (m,)")
+    y = torch.empty(m, dtype=torch.float32, device=x.device)
+    n_pos = bell.pos_row.shape[0]
+    if n_pos:
+        from hybrid_gmres_tpu_torch.ops._build import load_library
+
+        lib = load_library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.bucket_matvec(
+            code, br, bc,
+            bell.blocks_flat.data_ptr(), bell.bcols_flat.data_ptr(),
+            bell.pos_off.data_ptr(), bell.pos_cnt.data_ptr(),
+            bell.pos_row.data_ptr(), x32.data_ptr(),
+            None if scale is None else scale.data_ptr(), y.data_ptr(),
+            n_pos, m, n, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"bucket_matvec: CUDA launch failed "
+                               f"(cudaError {err})")
+        bucket_matvec.launches += 1
+    return y.to(x.dtype)
+
+
+bucket_matvec.launches = 0
+
+
+def bucket_rmatvec_plain(bell: BucketedBlockELL, u):
+    """Plain PyTorch ``y = A^T u`` from the FORWARD panel (the twin of the
+    JAX ``bucketed_bsr_rmatvec`` / K3).  float32 accumulation; returns
+    ``u.dtype``."""
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    nbr = -(-m // br)
+    u_pad = torch.zeros(nbr * br, dtype=torch.float32, device=u.device)
+    u_pad[:m] = u.to(torch.float32)
+    u_pad = u_pad.view(nbr, br)
+    valid = bell.pos_row >= 0
+    u_sorted = torch.where(valid[:, None], u_pad[bell.pos_row.long().clamp(
+        min=0)], torch.zeros((), device=u.device))      # (positions, br)
+    y2d = torch.zeros((bell.ncb, bc), dtype=torch.float32, device=u.device)
+    off = 0
+    for blocks, bcols in bell.buckets:
+        nbr_b = blocks.shape[0]
+        contrib = torch.einsum("rbij,ri->rbj", blocks.to(torch.float32),
+                               u_sorted[off:off + nbr_b])
+        y2d.index_add_(0, bcols.reshape(-1).long(), contrib.reshape(-1, bc))
+        off += nbr_b
+    return y2d.reshape(-1)[:n].to(u.dtype)
+
+
+def _row_quantize_csr(csr, qmax: int = 127):
+    """Per-row symmetric integer quantization: ``A ~= diag(s) Q`` with
+    ``s_i = max_j |A_ij| / qmax`` (1 for empty rows) and Q integer-valued in
+    ``[-qmax, qmax]`` (127 for int8 storage, 7 for packed int4).
+
+    Returns ``(csr_q, s)`` where ``csr_q`` carries the *rounded integer*
+    values as float64 (so the block packer's ``astype(int8)`` is exact).
+    The scales live outside the panel: ``A x = s * (Q x)`` and
+    ``A^T u = Q^T (s * u)``; the CUDA kernel applies ``s`` in its epilogue.
+    """
+    import scipy.sparse as sp
+
+    csr = csr.tocsr()
+    m = csr.shape[0]
+    absmax = np.zeros(m)
+    np.maximum.at(absmax, np.repeat(np.arange(m), np.diff(csr.indptr)),
+                  np.abs(csr.data))
+    s = np.where(absmax > 0, absmax / qmax, 1.0)
+    inv = 1.0 / s
+    q = np.rint(csr.data * np.repeat(inv, np.diff(csr.indptr)))
+    q = np.clip(q, -qmax, qmax)
+    csr_q = sp.csr_matrix((q, csr.indices.copy(), csr.indptr.copy()),
+                          shape=csr.shape)
+    return csr_q, s.astype(np.float32)
+
+
+def _storage_dtype(dtype):
+    """A torch dtype or its name -> torch.float32 / bfloat16 / int8."""
+    if dtype == "int4":
+        raise NotImplementedError("int4 panels are not ported yet: see "
+                                  "ROADMAP queue 1, item 5f")
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, dtype)
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported panel dtype {dtype!r}")
+    return dtype
+
+
+class BlockELLOperator(LinearOperator):
+    """Sparse operator backed by the bucketed block-ELL SpMV (twin of
+    ``PallasBSROperator``).
+
+    ``rmatvec`` uses a separately packed panel of the transpose when one was
+    built (``with_adjoint=True``), applied through the same kernel K1.  For
+    a mismatched pair, pass B as its own operator — B is never derived from
+    A.
+
+    ``dtype=int8`` stores per-row symmetrically quantized blocks with f32 row
+    scales (``A ~= diag(s) Q``), applied in the kernel epilogue.  The adjoint
+    panel holds the SAME quantized ``Q^T``, so ``<A x, u> == <x, A^T u>``.
+
+    ``dtype`` reports the COMPUTE dtype (float32 when quantized): reporting
+    int8 would make lam-composing wrappers cast lam to int8 (1e-2 -> 0) and
+    silently drop the Tikhonov term.  Storage is ``storage_dtype``.
+    """
+
+    def __init__(self, fwd: BucketedBlockELL, adj=None, fwd_scale=None,
+                 adj_scale=None, fro_sq=None):
+        self.fwd = fwd
+        self.adj = adj
+        self.fwd_scale = fwd_scale  # (m,) f32: y = scale * (Q x)
+        self.adj_scale = adj_scale  # (n,) f32 for the transpose panel
+        self.fro_sq = fro_sq        # ||A||_F^2 of the SOURCE matrix, f32
+
+    @classmethod
+    def from_csr(cls, csr, block=(8, 128), dtype=torch.float32,
+                 n_buckets: int = 4, with_adjoint: bool = True,
+                 device="cpu"):
+        """Pack a scipy CSR matrix.  ``dtype``: float32, bfloat16 or int8,
+        as a torch dtype or its name."""
+        dt = _storage_dtype(dtype)
+        np_dt = np.int8 if dt == torch.int8 else (
+            np.float32 if dt == torch.float32 else dt)
+        fwd_scale = None
+        fro_sq = torch.tensor(float((csr.multiply(csr)).sum()),
+                              dtype=torch.float32, device=device)
+        csr_fwd = csr
+        csr_adj = csr.T.tocsr() if with_adjoint else None
+        if dt == torch.int8:
+            csr_fwd, s = _row_quantize_csr(csr, qmax=127)
+            fwd_scale = torch.as_tensor(s, device=device)
+            if with_adjoint:
+                # ONE quantization: the adjoint panel is Q^T and rmatvec
+                # pre-scales u by fwd_scale (exact transpose of matvec)
+                csr_adj = csr_fwd.T.tocsr()
+        pack = dict(block=block, dtype=np_dt, n_buckets=n_buckets,
+                    device=device)
+        fwd = bucketed_block_ell_from_csr(csr_fwd, **pack)
+        adj = bucketed_block_ell_from_csr(csr_adj, **pack) if with_adjoint \
+            else None
+        return cls(fwd, adj, fwd_scale=fwd_scale, fro_sq=fro_sq)
+
+    @property
+    def shape(self):
+        return self.fwd.shape
+
+    @property
+    def device(self):
+        return self.fwd.device
+
+    @property
+    def fro_norm(self):
+        """Exact ``||A||_F`` of the source matrix (None if unrecorded)."""
+        return None if self.fro_sq is None else torch.sqrt(self.fro_sq)
+
+    @property
+    def dtype(self):
+        if self.fwd_scale is not None:
+            return torch.float32
+        return self.fwd.dtype
+
+    @property
+    def storage_dtype(self):
+        return self.fwd.dtype
+
+    def matvec(self, x):
+        return bucket_matvec(self.fwd, x, self.fwd_scale)
+
+    def rmatvec(self, u):
+        out_dtype = u.dtype
+        if self.fwd_scale is not None:
+            # A = diag(s) Q  =>  A^T u = Q^T (s * u), pre-scaled in f32
+            u = self.fwd_scale * u.to(torch.float32)
+        if self.adj is None:
+            if u.device.type != "cpu":
+                raise NotImplementedError(_K3_TODO)
+            y = bucket_rmatvec_plain(self.fwd, u)
+        else:
+            y = bucket_matvec(self.adj, u, self.adj_scale)
+        return y.to(out_dtype)
+
+    def matmat(self, X):
+        if X.device.type != "cpu":
+            raise NotImplementedError(_K2_TODO)
+        return super().matmat(X)
+
+    def rmatmat(self, U):
+        if U.device.type != "cpu":
+            raise NotImplementedError(_K4_TODO)
+        return super().rmatmat(U)

@@ -1,0 +1,194 @@
+"""Solver results and the generic GMRES core (PyTorch port).
+
+Twin of ``hybrid_gmres_tpu/solvers/common.py``.  Results keep the JAX
+package's fixed-shape convention: histories have length ``maxit`` with NaN
+beyond ``niters``.
+
+The JAX ``lax.scan`` becomes a fixed-trip Python loop over preallocated
+tensors.  The loop never reads a device value on the host: ``active`` and
+``niters`` stay device tensors updated with ``torch.where``, so on the card
+the whole solve is queued without a sync and only the caller's first read
+of the result waits for it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from hybrid_gmres_tpu_torch.krylov.arnoldi import (
+    arnoldi_orthogonalize,
+    arnoldi_step,
+)
+
+
+class FusedResidual(NamedTuple):
+    """Spec for the fused (stored-image) exact-residual mode.
+
+    The Krylov matvec is ``w = second(first(q))`` (BA: ``B(A q)``; AB:
+    ``A(B q)``).  Storing the per-step images lets the per-iteration TRUE
+    residual ``||b - A x_k||`` be a small matmul against the stored image
+    basis instead of an extra SpMV:
+
+      * BA-GMRES: ``x = Q y`` so ``A x = (A Q) y``; store ``u_k = A q_k``;
+      * AB-GMRES: ``x = B Q y`` so ``A x = (A B Q) y``; store ``w_k`` for the
+        residual and ``s_k = B q_k`` for the solution ``x = S y``.
+    """
+    first_mv: Callable        # q -> first-stage image (BA: A q; AB: B q)
+    second_mv: Callable       # first image -> Krylov vector w
+    rhs: torch.Tensor         # image-space RHS: b, or b - A x0 when x0 != 0
+    rhs_norm: torch.Tensor    # ||b|| (residual denominator, always vs b)
+    img: str = "first"        # which stage's image spans A x ("first"/"second")
+    solution_from_image: bool = False  # AB: x = (first images) @ y
+    x_offset: Optional[torch.Tensor] = None  # x0 added to the image solution
+
+
+class GMRESResult(NamedTuple):
+    x: torch.Tensor          # final iterate (at iteration `niters`)
+    err_hist: torch.Tensor   # (maxit,) relative error, NaN beyond niters
+    res_hist: torch.Tensor   # (maxit,) relative residual
+    niters: torch.Tensor     # int32: last iteration entered (1-based)
+    Q: torch.Tensor          # (n_or_m, maxit+1) padded Krylov basis
+    H: torch.Tensor          # (maxit+1, maxit) padded Hessenberg
+    beta: torch.Tensor       # ||r0||
+    IMG: Optional[torch.Tensor] = None   # (m_img, maxit), fused runs only
+    S: Optional[torch.Tensor] = None     # (x_shape, maxit), AB fused only
+    active: Optional[torch.Tensor] = None  # final active flag (bool)
+    fp: Optional[torch.Tensor] = None    # (3,) resume fingerprint
+
+
+def _todo(option, item):
+    return NotImplementedError(
+        f"{option} is not ported yet: see ROADMAP queue 1, {item}")
+
+
+def _column_major(rows, cols, dtype, device):
+    """Zero (rows, cols) tensor stored column by column: a column read or
+    write (the per-step access of the bases) touches contiguous memory."""
+    return torch.zeros((cols, rows), dtype=dtype, device=device).T
+
+
+def gmres_core(
+    krylov_mv: Callable,
+    r0: torch.Tensor,
+    project_solve: Callable,  # (H, Q, t, kdim) -> padded y of length maxit
+    solution_fn: Callable,    # (Q, y) -> x
+    residual_fn: Callable,    # x -> relative residual
+    error_fn: Callable,       # x -> relative error (may return NaN)
+    maxit: int,
+    tol: float,
+    x_shape: int,
+    breakdown_tol: float = 0.0,
+    history: bool = True,
+    resume_from: "GMRESResult | None" = None,
+    x_init=None,
+    residual: str = "true",
+    fused: "FusedResidual | None" = None,
+    defer_histories: bool = False,
+    basis_dtype=None,
+) -> GMRESResult:
+    """Generic preconditioned GMRES loop shared by AB/BA x {non,}hybrid.
+
+    Arnoldi expand -> projected solve -> residual/error tracking -> stop on
+    ``res <= tol`` or breakdown (``BAgmres_hybrid_bounds.m:24-80``), as a
+    fixed ``maxit``-step loop with an active mask.
+
+    ``residual``: "true" recomputes ``||b - A x_k||`` with an explicit
+    matvec; "estimate" uses the projected LS residual
+    ``||t - Hbar y|| / beta``; "fused" computes the true residual from the
+    stored per-step images (see :class:`FusedResidual`), no extra SpMV.
+    """
+    if residual not in ("true", "estimate", "fused"):
+        raise ValueError("residual must be 'true', 'estimate' or 'fused'")
+    if defer_histories:
+        raise _todo("defer_histories", "deferred items before item 7")
+    if basis_dtype is not None:
+        raise _todo("basis_dtype", "deferred items before item 7")
+    if not history:
+        raise _todo("history=False", "deferred items before item 7")
+    if resume_from is not None:
+        raise _todo("resume_from", "item 7 (utils/checkpoint.py)")
+    if residual == "fused" and fused is None:
+        raise ValueError("residual='fused' requires a FusedResidual spec")
+
+    dtype, device = r0.dtype, r0.device
+    like = dict(dtype=dtype, device=device)
+    n = r0.shape[0]
+    beta = torch.linalg.vector_norm(r0)
+    beta_safe = torch.where(beta > 0, beta, torch.ones((), **like))
+    Q = _column_major(n, maxit + 1, dtype, device)
+    Q[:, 0] = torch.where(beta > 0, r0 / beta_safe, torch.zeros_like(r0))
+    H = torch.zeros((maxit + 1, maxit), **like)
+    x = (torch.zeros((x_shape,), **like) if x_init is None
+         else torch.as_tensor(x_init, **like).clone())
+    t = torch.zeros((maxit + 1,), **like)
+    t[0] = beta
+    IMG = S = None
+    if residual == "fused":
+        IMG = _column_major(fused.rhs.shape[0], maxit, dtype, device)
+        if fused.solution_from_image:
+            S = _column_major(x_shape, maxit, dtype, device)
+
+    res_hist = torch.full((maxit,), float("nan"), **like)
+    err_hist = torch.full((maxit,), float("nan"), **like)
+    nan = torch.full((), float("nan"), **like)
+    active = beta > 0
+    niters = torch.zeros((), dtype=torch.int32, device=device)
+
+    for k in range(maxit):
+        if residual == "fused":
+            u = fused.first_mv(Q[:, k])
+            w = fused.second_mv(u)
+            IMG[:, k] = u if fused.img == "first" else w
+            if fused.solution_from_image:
+                S[:, k] = u
+            st = arnoldi_orthogonalize(Q, H, k, w, breakdown_tol, active)
+        else:
+            st = arnoldi_step(krylov_mv, Q, H, k, breakdown_tol, active)
+        kdim = k + 1
+        y = project_solve(H, Q, t, kdim)
+        if residual == "fused" and fused.solution_from_image:
+            xk = S @ y if fused.x_offset is None else fused.x_offset + S @ y
+        else:
+            xk = solution_fn(Q, y)
+        if residual == "true":
+            res_k = residual_fn(xk)
+        elif residual == "fused":
+            res_k = torch.linalg.vector_norm(fused.rhs - IMG @ y) / \
+                fused.rhs_norm
+        else:
+            res_k = torch.linalg.vector_norm(t - H @ y) / beta
+        err_k = error_fn(xk)
+        # On (lucky) breakdown the Krylov space is invariant, so the
+        # projected solve at this k is exact — adopt it, then stop (the JAX
+        # package's rule, common.py:278-291).
+        x = torch.where(active, xk, x)
+        res_hist[k] = torch.where(active, res_k, nan)
+        err_hist[k] = torch.where(active, err_k, nan)
+        niters = torch.where(active, kdim, niters)
+        stop = st.breakdown | (res_k <= tol)
+        active = active & ~stop
+    return GMRESResult(x, err_hist, res_hist, niters, Q, H, beta,
+                       IMG=IMG, S=S, active=active)
+
+
+def rel_residual_fn(A_op, b):
+    bnorm = torch.linalg.vector_norm(b)
+
+    def f(x):
+        return torch.linalg.vector_norm(b - A_op.matvec(x)) / bnorm
+
+    return f
+
+
+def rel_error_fn(x_true):
+    if x_true is None:
+        return lambda x: torch.full((), float("nan"), dtype=x.dtype,
+                                    device=x.device)
+    xt_norm = torch.linalg.vector_norm(x_true)
+
+    def f(x):
+        return torch.linalg.vector_norm(x - x_true) / xt_norm
+
+    return f

@@ -1,0 +1,189 @@
+"""AB-GMRES and BA-GMRES, non-hybrid and hybrid (PyTorch port).
+
+Twin of ``hybrid_gmres_tpu/solvers/gmres.py``:
+  * AB-GMRES: Arnoldi on ``M = A B`` in m-space, ``x = B (Q_k y)``;
+  * BA-GMRES: Arnoldi on ``M = B A`` in n-space with ``r0 = B b``,
+    ``x = Q_k y``;
+  * hybrid (PTR): the projected problem is Tikhonov-regularized,
+    ``y = (Hbar'Hbar + lam I)^{-1} Hbar' (beta e1)``.
+
+``lam=None`` gives the non-hybrid variant, a scalar the hybrid one.
+``lam="gcv"`` and the restarted wrappers are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hybrid_gmres_tpu_torch.krylov.projected import (
+    projected_ls_solve,
+    projected_tikhonov_solve,
+)
+from hybrid_gmres_tpu_torch.ops.linear_operator import as_operator
+from hybrid_gmres_tpu_torch.solvers.common import (
+    FusedResidual,
+    GMRESResult,
+    gmres_core,
+    rel_error_fn,
+    rel_residual_fn,
+)
+from hybrid_gmres_tpu_torch.utils.checkpoint import resume_fingerprint
+
+
+def _make_project_solve(lam):
+    """Projected-solve strategy: None -> plain LS; scalar -> fixed-lambda
+    Tikhonov."""
+    if lam is None:
+        return lambda H, Q, t, kdim: projected_ls_solve(H, t, kdim)
+    if isinstance(lam, str):
+        if lam == "gcv":
+            raise NotImplementedError(
+                "lam='gcv' needs reg/gcv.py, which is not ported yet: see "
+                "ROADMAP queue 1, item 8")
+        raise ValueError("lam must be None, a scalar, or 'gcv'")
+    return lambda H, Q, t, kdim: projected_tikhonov_solve(H, t, lam, kdim)
+
+
+def _setup(A, B, b, x_true, x0, maxit, lam):
+    A = as_operator(A)
+    B = as_operator(B)
+    b = torch.as_tensor(b)
+    if x_true is not None:
+        x_true = torch.as_tensor(x_true, dtype=b.dtype, device=b.device)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0, dtype=b.dtype, device=b.device)
+    maxit = min(A.shape) if maxit is None else int(maxit)
+    return A, B, b, x_true, x0, maxit, _make_project_solve(lam)
+
+
+def ab_gmres(
+    A,
+    B,
+    b,
+    x_true=None,
+    tol: float = 1e-6,
+    maxit: int | None = None,
+    lam=None,
+    history: bool = True,
+    breakdown_tol: float = 0.0,
+    resume_from: GMRESResult | None = None,
+    x0=None,
+    residual: str = "true",
+    defer_histories: bool = False,
+    basis_dtype=None,
+) -> GMRESResult:
+    """AB-GMRES: Krylov space in m-space on ``M = A B``; ``x = B Q_k y``.
+
+    ``x0``: optional initial iterate (``r0 = b - A x0``, ``x = x0 + B Q_k
+    y``).  ``residual="fused"`` stores ``B q_k`` and ``A (B q_k)`` so the
+    per-iteration solution and TRUE residual are small matmuls — 2
+    SpMVs/iteration instead of 4, identical numbers.
+    """
+    A, B, b, x_true, x0, maxit, project_solve = _setup(
+        A, B, b, x_true, x0, maxit, lam)
+
+    def krylov_mv(q):
+        return A.matvec(B.matvec(q))
+
+    if x0 is None:
+        r0 = b
+
+        def solution_fn(Q, y):
+            return B.matvec(Q[:, :maxit] @ y)
+    else:
+        r0 = b - A.matvec(x0)
+
+        def solution_fn(Q, y):
+            return x0 + B.matvec(Q[:, :maxit] @ y)
+    fused = (
+        FusedResidual(first_mv=B.matvec, second_mv=A.matvec, rhs=r0,
+                      rhs_norm=torch.linalg.vector_norm(b), img="second",
+                      solution_from_image=True, x_offset=x0)
+        if residual == "fused" else None
+    )
+    res = gmres_core(
+        krylov_mv=krylov_mv,
+        r0=r0,
+        project_solve=project_solve,
+        solution_fn=solution_fn,
+        residual_fn=rel_residual_fn(A, b),
+        error_fn=rel_error_fn(x_true),
+        maxit=maxit,
+        tol=tol,
+        x_shape=A.shape[1],
+        breakdown_tol=breakdown_tol,
+        history=history,
+        resume_from=resume_from,
+        x_init=x0,
+        residual=residual,
+        fused=fused,
+        defer_histories=defer_histories,
+        basis_dtype=basis_dtype,
+    )
+    return res._replace(fp=resume_fingerprint(x0, lam, device=b.device))
+
+
+def ba_gmres(
+    A,
+    B,
+    b,
+    x_true=None,
+    tol: float = 1e-6,
+    maxit: int | None = None,
+    lam=None,
+    history: bool = True,
+    breakdown_tol: float = 0.0,
+    resume_from: GMRESResult | None = None,
+    x0=None,
+    residual: str = "true",
+    defer_histories: bool = False,
+    basis_dtype=None,
+) -> GMRESResult:
+    """BA-GMRES: Krylov space in n-space on ``M = B A`` with ``r0 = B b``.
+
+    ``x0``: optional initial iterate (``r0 = B (b - A x0)``, ``x = x0 + Q_k
+    y``).  ``residual="fused"`` stores ``A q_k`` so the TRUE residual needs
+    no extra SpMV: 2 SpMVs per iteration.
+    """
+    A, B, b, x_true, x0, maxit, project_solve = _setup(
+        A, B, b, x_true, x0, maxit, lam)
+
+    def krylov_mv(q):
+        return B.matvec(A.matvec(q))
+
+    if x0 is None:
+        rhs = b
+
+        def solution_fn(Q, y):
+            return Q[:, :maxit] @ y
+    else:
+        rhs = b - A.matvec(x0)
+
+        def solution_fn(Q, y):
+            return x0 + Q[:, :maxit] @ y
+    r0 = B.matvec(rhs)
+    fused = (
+        FusedResidual(first_mv=A.matvec, second_mv=B.matvec, rhs=rhs,
+                      rhs_norm=torch.linalg.vector_norm(b), img="first")
+        if residual == "fused" else None
+    )
+    res = gmres_core(
+        krylov_mv=krylov_mv,
+        r0=r0,
+        project_solve=project_solve,
+        solution_fn=solution_fn,
+        residual_fn=rel_residual_fn(A, b),
+        error_fn=rel_error_fn(x_true),
+        maxit=maxit,
+        tol=tol,
+        x_shape=A.shape[1],
+        breakdown_tol=breakdown_tol,
+        history=history,
+        resume_from=resume_from,
+        x_init=x0,
+        residual=residual,
+        fused=fused,
+        defer_histories=defer_histories,
+        basis_dtype=basis_dtype,
+    )
+    return res._replace(fp=resume_fingerprint(x0, lam, device=b.device))

@@ -1,0 +1,56 @@
+"""Carry parameters across from the JAX package.
+
+:func:`operator_from_numpy` builds the port's :class:`BlockELLOperator` from
+the leaves of a JAX ``PallasBSROperator`` handed over as numpy arrays, so
+both packages compute with the very same panels.  Nothing here imports JAX:
+the caller does ``np.asarray`` on each leaf.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
+from hybrid_gmres_tpu_torch.ops.sparse import BucketedBlockELL
+from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
+
+
+def bell_from_numpy(buckets, inv_perm, shape, ncb, packed4=False,
+                    device="cpu") -> BucketedBlockELL:
+    """A ``BucketedBlockELL`` from the leaves of the JAX container: the
+    ``(blocks, bcols)`` pair of each bucket, ``inv_perm``, ``shape``,
+    ``ncb`` and ``packed4``.  The JAX ``row_group`` is not carried: it only
+    shaped the packing, and its padding is already in the arrays."""
+    buckets = [(np.asarray(b), np.asarray(c)) for b, c in buckets]
+    return BucketedBlockELL.from_numpy(buckets, np.asarray(inv_perm), shape,
+                                       ncb, packed4=packed4, device=device)
+
+
+def _vec(a, device):
+    return None if a is None else torch.as_tensor(
+        np.array(a, np.float32), device=device)
+
+
+def operator_from_numpy(fwd, adj=None, fwd_scale=None, adj_scale=None,
+                        fro_sq=None, device="cpu") -> BlockELLOperator:
+    """The port's operator from a JAX ``PallasBSROperator``'s leaves.
+
+    ``fwd``/``adj``: mappings with the keys of :func:`bell_from_numpy`
+    (``buckets``, ``inv_perm``, ``shape``, ``ncb``, ``packed4``); ``adj``
+    may be None.  ``fwd_scale``/``adj_scale``: the
+    float32 row scales or None; ``fro_sq``: ``||A||_F^2`` or None.
+    """
+    return BlockELLOperator(
+        bell_from_numpy(device=device, **fwd),
+        None if adj is None else bell_from_numpy(device=device, **adj),
+        fwd_scale=_vec(fwd_scale, device),
+        adj_scale=_vec(adj_scale, device),
+        fro_sq=None if fro_sq is None else torch.tensor(
+            float(np.asarray(fro_sq)), dtype=torch.float32, device=device),
+    )
+
+
+def dense_from_numpy(mat, device="cpu") -> DenseOperator:
+    """The port's ``DenseOperator`` from a JAX ``DenseOperator.mat``."""
+    return DenseOperator(torch.as_tensor(np.asarray(mat), device=device))

@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Where the time of one CT solve goes on the GPU: a torch.profiler trace.
+
+    python3 scripts_torch/profile_solve.py
+
+Builds the bench scenario of ``chip_smoke.py`` at n=64 and n=128 (int8 Morton
+block-ELL operators, hybrid BA-GMRES at maxit=100, lam=1e-2, fused
+residual) and times 5 solves at each n after one warm-up, all before the
+first profiler session (the profiler slows the host loop after it, too).
+Then it runs one solve per n under ``torch.profiler`` (CPU and CUDA
+activities).  Prints one JSON line per n with:
+
+  * ``wall_ms``: the 5 solves without the profiler (CUDA events);
+  * ``traced_ms``: host time of the profiled solve, synchronized;
+  * ``busy_ms``: the union of all device intervals (kernels, copies,
+    sets) in the trace, and ``busy_share`` = busy / traced;
+  * ``launches``: device activities in the trace;
+  * ``kinds``: device milliseconds and activity count by kind.
+
+Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+import time
+from functools import partial
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+# first match wins; matched against the lower-cased activity name
+KINDS = (
+    ("K1 bucket_matvec", ("bucket_matvec",)),
+    ("Cholesky", ("potrf", "getrf", "cholesky")),
+    ("triangular solves", ("trsm", "trsv", "triangular")),
+    ("cuBLAS gemv/gemm/dot", ("gemv", "gemm", "dot_kernel", "dot")),
+    ("norms", ("norm",)),
+    ("reductions", ("reduce",)),
+    ("elementwise (where/copy/fill/add)", ("elementwise", "fill", "copy",
+                                           "where", "index", "cat")),
+)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kind_of(ev):
+    if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
+        return "memcpy/memset"
+    name = ev.get("name", "").lower()
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def busy_union_us(intervals):
+    total, end = 0.0, -np.inf
+    for t0, t1 in sorted(intervals):
+        if t1 <= end:
+            continue
+        total += t1 - max(t0, end)
+        end = t1
+    return total
+
+
+def profile(n, run, wall, info):
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [ev for ev in trace.get("traceEvents", [])
+              if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS]
+    if not events:
+        sys.exit(f"n={n}: the trace holds no device activity")
+    kinds = {}
+    for ev in events:
+        ms, cnt = kinds.get(kind_of(ev), (0.0, 0))
+        kinds[kind_of(ev)] = (ms + ev["dur"] / 1e3, cnt + 1)
+    busy_ms = busy_union_us([(ev["ts"], ev["ts"] + ev["dur"])
+                             for ev in events]) / 1e3
+    print(json.dumps({
+        "n": n, "card": card(), "wall_ms_median": float(
+            np.median(wall)), "wall_ms": wall, "traced_ms": traced_ms,
+        "busy_ms": busy_ms, "busy_share": busy_ms / traced_ms,
+        "launches": len(events),
+        "kinds": {k: {"ms": ms, "count": c} for k, (ms, c) in sorted(
+            kinds.items(), key=lambda kv: -kv[1][0])},
+        "A_panel_mb": info["A_panel_mb"], "B_panel_mb": info["B_panel_mb"]}),
+        flush=True)
+
+
+def card():
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main():
+    import torch
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        sys.exit("profile_solve.py needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for n in (64, 128):
+        A_op, B_op, b, x_true, info, _ = chip_smoke.make_problem(n)
+        run = partial(chip_smoke.solve, A_op, B_op, b, x_true)
+        runs[n] = (run, chip_smoke.per_call_ms(run, reps=5), info)
+    for n, (run, wall, info) in runs.items():
+        profile(n, run, wall, info)
+
+
+if __name__ == "__main__":
+    main()

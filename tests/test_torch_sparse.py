@@ -1,0 +1,229 @@
+"""PyTorch port: block-ELL packer and the K1 module against the JAX package.
+
+The same numpy inputs go through both packages.  The JAX operators run their
+Pallas kernels in interpret mode on the CPU; the port's wrapper takes its
+plain PyTorch version for CPU tensors.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+from hybrid_gmres_tpu.ops import sparse as jsparse
+from hybrid_gmres_tpu.ops import spmv_pallas as jspmv
+from hybrid_gmres_tpu_torch.ops import sparse as tsparse
+from hybrid_gmres_tpu_torch.ops import spmv_cuda as tspmv
+from hybrid_gmres_tpu_torch.utils.convert import operator_from_numpy
+
+# K1 parity tolerance: both sides multiply the same stored block values by
+# the same float32 x and accumulate in float32; only the summation order
+# differs, so ||y_port - y_jax||_inf <= 1e-5 ||y_jax||_inf.
+RTOL = 1e-5
+
+
+def _random_csr(m=2100, n=700, density=0.02, seed=0):
+    return sp.random(m, n, density=density, format="csr",
+                     random_state=np.random.RandomState(seed),
+                     dtype=np.float64)
+
+
+def _ct16_csr_pair():
+    from hybrid_gmres_tpu.ops.ordering import morton_perm, reorder_pair
+    from hybrid_gmres_tpu.problems.ct import ct_mismatched
+
+    prob = ct_mismatched(n=16, n_angles=24, n_det=24, dense=False)
+    g = prob.geom
+    return reorder_pair(prob.A_csr.astype(np.float32),
+                        prob.B_csr.astype(np.float32),
+                        morton_perm(g.n_angles, g.n_det), morton_perm(g.n, g.n))
+
+
+def _assert_panels_equal(jbell, tbell):
+    assert len(jbell.buckets) == len(tbell.buckets)
+    for (jb, jc), (tb, tc) in zip(jbell.buckets, tbell.buckets):
+        assert tb.dtype == torch.from_numpy(np.array(jb)).dtype
+        np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
+        np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
+    np.testing.assert_array_equal(np.asarray(jbell.inv_perm),
+                                  tbell.inv_perm.numpy())
+    assert jbell.ncb == tbell.ncb and tuple(jbell.shape) == tbell.shape
+
+
+def _leaves(bell):
+    """The JAX container's leaves as numpy arrays."""
+    return dict(buckets=[(np.asarray(b), np.asarray(c))
+                         for b, c in bell.buckets],
+                inv_perm=np.asarray(bell.inv_perm), shape=bell.shape,
+                ncb=bell.ncb, packed4=bell.packed4)
+
+
+def _convert(jop):
+    return operator_from_numpy(
+        _leaves(jop.fwd), None if jop.adj is None else _leaves(jop.adj),
+        fwd_scale=None if jop.fwd_scale is None else np.asarray(jop.fwd_scale),
+        adj_scale=None if jop.adj_scale is None else np.asarray(jop.adj_scale),
+        fro_sq=np.asarray(jop.fro_sq))
+
+
+def _close(got, want, rtol=RTOL):
+    want = np.asarray(want, np.float64)
+    err = np.max(np.abs(np.asarray(got, np.float64) - want))
+    assert err <= rtol * np.max(np.abs(want)), (err, np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("source", ["random", "ct16_A", "ct16_B"])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_packer_matches_jax(source, dtype):
+    if source == "random":
+        csr, block = _random_csr(), (8, 128)
+    else:
+        A, B = _ct16_csr_pair()
+        csr, block = (A, (32, 128)) if source == "ct16_A" else (B, (8, 128))
+    np_dt = np.float32
+    if dtype == "int8":
+        jq, js = jspmv._row_quantize_csr(csr)
+        tq, ts = tspmv._row_quantize_csr(csr)
+        np.testing.assert_array_equal(js, ts)
+        np.testing.assert_array_equal(jq.toarray(), tq.toarray())
+        csr, np_dt = tq, np.int8
+    for n_buckets, row_group in ((8, 8), (4, 1)):
+        kw = dict(block=block, dtype=np_dt, n_buckets=n_buckets,
+                  row_group=row_group)
+        _assert_panels_equal(jsparse.bucketed_block_ell_from_csr(csr, **kw),
+                             tsparse.bucketed_block_ell_from_csr(csr, **kw))
+
+
+def test_flat_layout_is_what_the_kernel_walks():
+    """Emulate the CUDA kernel's indexing in numpy (one block-row position
+    at a time: pos_off/pos_cnt into the flat arrays, x read unpadded with
+    columns >= n masked, output rows of pos_row, rows >= m dropped) and check
+    it against the plain version."""
+    csr_q, s = tspmv._row_quantize_csr(_random_csr(m=1001, n=650))
+    bell = tsparse.bucketed_block_ell_from_csr(csr_q, block=(8, 128),
+                                               dtype=np.int8, n_buckets=4,
+                                               row_group=1)
+    op = tspmv.BlockELLOperator(bell, fwd_scale=torch.from_numpy(s))
+    assert len(bell.buckets) > 1
+    for blocks, _ in bell.buckets:   # bucket tensors are views of the flat
+        assert blocks.untyped_storage().data_ptr() == \
+            bell.blocks_flat.untyped_storage().data_ptr()
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    blocks = bell.blocks_flat.numpy().astype(np.float32)
+    bcols = bell.bcols_flat.numpy()
+    scale = op.fwd_scale.numpy()
+    y = np.full(m, np.nan, np.float32)
+    for p in range(bell.pos_row.shape[0]):
+        row = int(bell.pos_row[p])
+        if row < 0:
+            continue
+        off, cnt = int(bell.pos_off[p]), int(bell.pos_cnt[p])
+        cols = bcols[off:off + cnt, None] * bc + np.arange(bc)
+        xv = np.where(cols < n, x[np.minimum(cols, n - 1)], 0.0)
+        acc = np.einsum("jrc,jc->r", blocks[off:off + cnt], xv)
+        rows = row * br + np.arange(br)
+        keep = rows < m
+        y[rows[keep]] = scale[rows[keep]] * acc[keep]
+    assert np.isfinite(y).all()            # every output row written once
+    _close(y, op.matvec(torch.from_numpy(x)).numpy())
+    # pos_cnt skips only zero padding: counting every slot gives the same y
+    assert int(bell.pos_cnt.sum()) < bell.bcols_flat.numel()
+
+
+@pytest.mark.parametrize("block", [(32, 128), (8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k1_matches_jax_interpret_kernel(block, dtype):
+    """m=2100 and n=700 are not multiples of the block shape; row_group=2
+    gives several buckets at this size."""
+    csr = _random_csr()
+    jop = jspmv.PallasBSROperator.from_csr(
+        csr, block=block, dtype=jnp.dtype(dtype), n_buckets=4,
+        with_adjoint=True, interpret=True, row_group=2)
+    assert len(jop.fwd.buckets) > 1
+    op = _convert(jop)
+    assert op.dtype == (torch.float32 if dtype != "bfloat16"
+                        else torch.bfloat16)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal(csr.shape[1]).astype(np.float32)
+    u = rng.standard_normal(csr.shape[0]).astype(np.float32)
+    _close(op.matvec(torch.from_numpy(x)).numpy(),
+           jop.matvec(jnp.asarray(x)))
+    # rmatvec through the adjoint panel: K1 again
+    _close(op.rmatvec(torch.from_numpy(u)).numpy(),
+           jop.rmatvec(jnp.asarray(u)))
+    np.testing.assert_allclose(float(op.fro_sq), float(jop.fro_sq), rtol=0)
+
+
+def test_k1_float64_vectors_match_jax():
+    """Solver dtype float64 (the CPU parity regime): both packages cast x to
+    float32 for the panel product, scale in float32, and return float64."""
+    csr = _random_csr(m=700, n=300)
+    jop = jspmv.PallasBSROperator.from_csr(csr, dtype=jnp.int8, n_buckets=2,
+                                           with_adjoint=False, interpret=True,
+                                           row_group=1)
+    op = _convert(jop)
+    x = np.random.default_rng(2).standard_normal(300)
+    got = op.matvec(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    _close(got.numpy(), jop.matvec(jnp.asarray(x)))
+
+
+def test_rmatvec_without_adjoint_panel_plain_matches_jax_k3():
+    """On CPU the port's plain K3 (transpose from the forward panel) agrees
+    with the JAX interpret-mode K3."""
+    csr = _random_csr(m=900, n=500)
+    for dtype in (jnp.float32, jnp.int8):
+        jop = jspmv.PallasBSROperator.from_csr(
+            csr, dtype=dtype, n_buckets=4, with_adjoint=False,
+            interpret=True, row_group=1)
+        op = _convert(jop)
+        u = np.random.default_rng(3).standard_normal(900).astype(np.float32)
+        _close(op.rmatvec(torch.from_numpy(u)).numpy(),
+               jop.rmatvec(jnp.asarray(u)))
+
+
+def test_unported_kernels_raise_on_a_device_tensor():
+    """K2/K3/K4 are not ported: a non-CPU tensor raises, naming the kernel
+    (the meta device stands in for CUDA here)."""
+    op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
+                                         with_adjoint=False)
+    with pytest.raises(NotImplementedError, match="K3"):
+        op.rmatvec(torch.zeros(300, device="meta"))
+    with pytest.raises(NotImplementedError, match="K2"):
+        op.matmat(torch.zeros((200, 2), device="meta"))
+    with pytest.raises(NotImplementedError, match="K4"):
+        op.rmatmat(torch.zeros((300, 2), device="meta"))
+    with pytest.raises(NotImplementedError, match="int4"):
+        tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
+                                        dtype="int4")
+    # the CPU plain paths still work
+    X = torch.randn(200, 2)
+    np.testing.assert_allclose(
+        op.matmat(X).numpy(),
+        torch.stack([op.matvec(X[:, 0]), op.matvec(X[:, 1])], 1).numpy())
+
+
+def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
+    from hybrid_gmres_tpu_torch.ops import _build
+    from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
+
+    def boom(*a, **k):
+        raise AssertionError("CPU path loaded the CUDA kernel library")
+
+    monkeypatch.setattr(_build, "load_library", boom)
+    csr = _random_csr(m=400, n=300)
+    A = tspmv.BlockELLOperator.from_csr(csr, dtype="int8",
+                                        with_adjoint=False)
+    B = tspmv.BlockELLOperator.from_csr(csr.T.tocsr(), dtype="int8",
+                                        with_adjoint=False)
+    before = tspmv.bucket_matvec.launches
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(400))
+    r = ba_gmres(A, B, b.float(), tol=0.0, maxit=5, lam=1e-2,
+                 residual="fused")
+    assert torch.isfinite(r.res_hist).all()
+    assert tspmv.bucket_matvec.launches == before
+    assert not _build._LIBS
