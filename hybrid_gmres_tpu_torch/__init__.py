@@ -4,9 +4,10 @@ The JAX package beside it is the reference; this package mirrors its module
 paths and public names so each counterpart is easy to find.  It imports
 ``torch``, ``numpy`` and ``scipy`` only — never ``jax``.
 
-On the CUDA path the bucketed block-ELL SpMV runs as a hand-written Hopper
-kernel (``csrc/bucket_spmv.cu``, built with ``nvcc`` at first use); on CPU
-tensors every operator uses its plain PyTorch version.
+On the CUDA path the bucketed block-ELL SpMV and SpMM run as hand-written
+Hopper kernels (``csrc/bucket_spmv.cu``, ``csrc/bucket_spmm.cu``, built with
+``nvcc`` at first use); on CPU tensors every operator uses its plain PyTorch
+version.  Constructors build on the card unless given ``device="cpu"``.
 
 Imports are lazy: ``import hybrid_gmres_tpu_torch`` loads no solver until a
 name below is first used.
@@ -28,6 +29,8 @@ _EXPORTS = {
     "GMRESResult": "hybrid_gmres_tpu_torch.solvers.common",
     "ab_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
     "ba_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
+    "ab_gmres_batched": "hybrid_gmres_tpu_torch.solvers.batched",
+    "ba_gmres_batched": "hybrid_gmres_tpu_torch.solvers.batched",
 }
 
 __all__ = sorted(_EXPORTS)

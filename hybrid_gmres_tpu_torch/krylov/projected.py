@@ -6,8 +6,14 @@ zeroed and an identity is injected on the inactive diagonal, so the padded
 system is nonsingular and its solution is zero beyond kdim — slot for slot
 the same numbers as the JAX package.
 
-Both solves use the ``_ex`` LAPACK/cuSOLVER entry points, which report
-failure in a device tensor instead of checking it on the host: the plain
+Where the JAX package maps a solve over a batch with ``vmap``, the batch is
+written out here: ``H`` may be ``(..., maxit+1, maxit)`` and ``t``
+``(..., maxit+1)`` with any leading batch dimensions, ``kdim`` and ``lam``
+may be Python scalars or tensors that broadcast against those dimensions,
+and all the systems go down in one LAPACK/cuSOLVER call.
+
+Both solves use the ``_ex`` entry points, which report failure in a device
+tensor instead of checking it on the host: the plain
 ``torch.linalg.cholesky``/``solve`` would add one host sync per iteration.
 """
 
@@ -16,48 +22,52 @@ from __future__ import annotations
 import torch
 
 
-def _inactive_diag(maxit: int, kdim, dtype, device):
-    """Diagonal mask that is 1.0 on rows/cols with index >= kdim, else 0."""
-    idx = torch.arange(maxit, device=device)
-    return (idx >= kdim).to(dtype)
+def _over(v, ndim: int):
+    """A scalar or batch-shaped tensor, ready to broadcast against a batch
+    of arrays with ``ndim`` trailing dimensions."""
+    if isinstance(v, torch.Tensor):
+        return v[(...,) + (None,) * ndim]
+    return v
 
 
-def _mask_columns(H, kdim):
-    col = torch.arange(H.shape[1], device=H.device)
-    return torch.where(col[None, :] < kdim, H, torch.zeros((), dtype=H.dtype,
-                                                           device=H.device))
+def _active(maxit: int, kdim, device):
+    """Bool mask (..., maxit): True on slots with index < kdim."""
+    return torch.arange(maxit, device=device) < _over(kdim, 1)
+
+
+def mask_columns(H, kdim):
+    """``H`` with the columns of index >= kdim zeroed."""
+    return torch.where(_active(H.shape[-1], kdim, H.device)[..., None, :], H,
+                       torch.zeros((), dtype=H.dtype, device=H.device))
 
 
 def projected_ls_solve(H, t, kdim):
     """LS solution of ``min || t - H y ||`` over the first ``kdim`` columns
     (Householder QR of the padded matrix; MATLAB backslash on the k-step
-    system).  Returns padded ``y`` of length maxit, zero beyond kdim."""
-    maxit = H.shape[1]
+    system).  Returns padded ``y`` (..., maxit), zero beyond kdim."""
+    maxit = H.shape[-1]
     dtype, device = H.dtype, H.device
-    H = _mask_columns(H, kdim)
+    H = mask_columns(H, kdim)
     Qr, R = torch.linalg.qr(H, mode="reduced")
-    g = Qr.T @ t
-    active = torch.arange(maxit, device=device) < kdim
+    active = _active(maxit, kdim, device)
     zero = torch.zeros((), dtype=dtype, device=device)
-    g = torch.where(active, g, zero)
-    Rm = R + torch.diag(_inactive_diag(maxit, kdim, dtype, device))
-    y, _ = torch.linalg.solve_ex(Rm, g)
-    return torch.where(active, y, zero)
+    g = torch.where(active, (Qr.mT @ t[..., None])[..., 0], zero)
+    Rm = R + torch.diag_embed((~active).to(dtype))
+    y, _ = torch.linalg.solve_ex(Rm, g[..., None])
+    return torch.where(active, y[..., 0], zero)
 
 
 def projected_tikhonov_solve(H, t, lam, kdim):
     """Tikhonov-projected solve ``(H'H + lam I) y = H' t`` on the active
     block (the reference's shifted normal equations), by Cholesky."""
-    maxit = H.shape[1]
+    maxit = H.shape[-1]
     dtype, device = H.dtype, H.device
-    H = _mask_columns(H, kdim)
-    G = H.T @ H
-    lam = torch.as_tensor(lam, dtype=dtype, device=device)
-    G = G + lam * torch.eye(maxit, dtype=dtype, device=device) + torch.diag(
-        _inactive_diag(maxit, kdim, dtype, device))
-    rhs = H.T @ t
+    H = mask_columns(H, kdim)
+    active = _active(maxit, kdim, device)
+    lam = _over(torch.as_tensor(lam, dtype=dtype, device=device), 2)
+    G = H.mT @ H + lam * torch.eye(maxit, dtype=dtype, device=device) + \
+        torch.diag_embed((~active).to(dtype))
+    rhs = H.mT @ t[..., None]
     L, _ = torch.linalg.cholesky_ex(G)
-    y = torch.cholesky_solve(rhs[:, None], L).squeeze(1)
-    idx = torch.arange(maxit, device=device)
-    return torch.where(idx < kdim, y, torch.zeros((), dtype=dtype,
-                                                  device=device))
+    y = torch.cholesky_solve(rhs, L)[..., 0]
+    return torch.where(active, y, torch.zeros((), dtype=dtype, device=device))

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from hybrid_gmres_tpu_torch.utils.device import require_device
+
 _INT4_TODO = ("packed int4 panels (packed4) are not ported yet: see ROADMAP "
               "queue 1, item 5f")
 
@@ -40,7 +42,8 @@ class BucketedBlockELL:
 
     ``inv_perm[orig_block_row] = position in the sorted/concatenated order``.
     Build with :func:`bucketed_block_ell_from_csr` or :meth:`from_numpy`.
-    The plain matvec is ``ops.spmv_cuda.bucket_matvec_plain``.
+    The plain products are ``ops.spmv_cuda.bucket_matvec_plain`` and
+    ``bucket_matmat_plain``.
     """
 
     buckets: tuple            # of (blocks (nbr_b, maxb_b, BR, BC), bcols (nbr_b, maxb_b))
@@ -55,15 +58,18 @@ class BucketedBlockELL:
 
     @classmethod
     def from_numpy(cls, buckets, inv_perm, shape, ncb, packed4=False,
-                   device="cpu", dtype=None):
+                   device="cuda", dtype=None):
         """Container from numpy per-bucket ``(blocks, bcols)`` arrays.
 
+        ``device``: where the panel lives; the default is the card, and it
+        raises without one (pass ``"cpu"`` for the CPU path).
         ``dtype``: torch storage dtype (default: the blocks' own; bfloat16
         arrays from ``ml_dtypes`` are reinterpreted bit for bit).
         ``packed4=True`` (int4 nibble pairs) is rejected: not ported yet.
         """
         if packed4:
             raise NotImplementedError(_INT4_TODO)
+        device = require_device(device)
         br, bc = buckets[0][0].shape[2:]
         flat_b, flat_c, offs, cnts = [], [], [], []
         base = 0
@@ -150,7 +156,7 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
                                 n_buckets: int = 4,
                                 row_group: int = 8,
                                 pack_int4: bool = False,
-                                device="cpu") -> BucketedBlockELL:
+                                device="cuda") -> BucketedBlockELL:
     """Host conversion CSR -> sliced/bucketed block-ELL.
 
     Same packing as the JAX package: ``row_group`` (block-rows per Pallas
@@ -158,12 +164,14 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
     bucket padding and the bucket cap, which keeps the panels identical.
 
     ``dtype``: numpy storage dtype, or ``torch.bfloat16`` (packed in float32
-    on the host, rounded to bfloat16 by torch).
+    on the host, rounded to bfloat16 by torch).  ``device``: where the panel
+    lives; the default is the card, and it raises without one.
     """
     import scipy.sparse as sp
 
     if pack_int4:
         raise NotImplementedError(_INT4_TODO)
+    device = require_device(device)
     torch_dtype = dtype if isinstance(dtype, torch.dtype) else None
     np_dtype = np.float32 if torch_dtype is not None else np.dtype(dtype)
 

@@ -1,4 +1,5 @@
-"""Block-ELL SpMV on the card: kernel wrapper, plain versions, operator.
+"""Block-ELL SpMV and SpMM on the card: kernel wrappers, plain versions,
+operator.
 
 Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
 
@@ -7,10 +8,14 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     the hand-written kernel in ``csrc/bucket_spmv.cu`` once per operator
     application (un-sort and row scale fused into its epilogue) or raises;
     on a CPU tensor it calls :func:`bucket_matvec_plain`.
-  * K2 (``_bucket_matmat``), K3 (``_bucket_rmatvec``) and K4
-    (``_bucket_rmatmat``) are not ported yet: on a CUDA tensor the paths
-    that need them raise ``NotImplementedError``; on CPU they use plain
-    versions.  See ROADMAP queue 2.
+  * :func:`bucket_matmat` replaces ``_bucket_matmat`` and its wrapper
+    ``bucketed_bsr_matmat`` (K2) the same way, through
+    ``csrc/bucket_spmm.cu``: one launch per application, one panel read for
+    up to 8 right-hand sides; :func:`bucket_matmat_plain` on a CPU tensor.
+  * K3 (``_bucket_rmatvec``) and K4 (``_bucket_rmatmat``) are not ported
+    yet: on a CUDA tensor the paths that need them raise
+    ``NotImplementedError``; on CPU they use plain versions.  See ROADMAP
+    queue 2.
 """
 
 from __future__ import annotations
@@ -25,13 +30,15 @@ from hybrid_gmres_tpu_torch.ops.sparse import (
     BucketedBlockELL,
     bucketed_block_ell_from_csr,
 )
+from hybrid_gmres_tpu_torch.utils.device import require_device
 
 # kernel dtype codes, matching bucket_spmv.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _BLOCK_ROWS = (8, 16, 32)
+# widest block each kernel takes: K1 runs one thread per block column, K2
+# caps its thread blocks at 512 threads
+_MAX_BC = {"bucket_matvec": 1024, "bucket_matmat": 512}
 
-_K2_TODO = ("K2 (_bucket_matmat, multi-RHS SpMM) is not ported to CUDA yet: "
-            "see ROADMAP queue 2")
 _K3_TODO = ("K3 (_bucket_rmatvec, transposed SpMV from the forward panel) is "
             "not ported to CUDA yet: build the operator with with_adjoint="
             "True, or see ROADMAP queue 2")
@@ -61,6 +68,37 @@ def bucket_matvec_plain(bell: BucketedBlockELL, x, scale=None):
     return y.to(x.dtype)
 
 
+def _check_launch(name, bell, x, scale, x_shape):
+    """Argument checks shared by the kernel wrappers; returns the dtype
+    code and the float32 contiguous ``scale`` (or None)."""
+    br, bc = bell.block_shape
+    m = bell.shape[0]
+    code = _DTYPE_CODES.get(bell.dtype)
+    if code is None:
+        raise TypeError(f"{name}: no kernel for {bell.dtype} blocks")
+    if br not in _BLOCK_ROWS or bc % 32 or not 32 <= bc <= _MAX_BC[name]:
+        raise ValueError(f"{name}: block {(br, bc)} not supported (rows in "
+                         f"{_BLOCK_ROWS}, cols a multiple of 32 up to "
+                         f"{_MAX_BC[name]})")
+    if tuple(x.shape) != x_shape:
+        raise ValueError(f"{name}: input has shape {tuple(x.shape)}, the "
+                         f"operator needs {x_shape}")
+    if bell.device != x.device:
+        raise ValueError(f"{name}: panel on {bell.device}, input on "
+                         f"{x.device}")
+    if scale is not None:
+        scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
+        if scale.shape != (m,):
+            raise ValueError(f"{name}: scale must have shape (m,)")
+    return code, scale
+
+
+def _panel_pointers(bell):
+    return (bell.blocks_flat.data_ptr(), bell.bcols_flat.data_ptr(),
+            bell.pos_off.data_ptr(), bell.pos_cnt.data_ptr(),
+            bell.pos_row.data_ptr())
+
+
 def bucket_matvec(bell: BucketedBlockELL, x, scale=None):
     """``y = diag(scale) A x`` through K1: the CUDA kernel for a CUDA ``x``,
     the plain version for a CPU ``x``.
@@ -73,35 +111,17 @@ def bucket_matvec(bell: BucketedBlockELL, x, scale=None):
         raise ValueError(f"bucket_matvec: unsupported device {x.device}")
     br, bc = bell.block_shape
     m, n = bell.shape
-    code = _DTYPE_CODES.get(bell.dtype)
-    if code is None:
-        raise TypeError(f"bucket_matvec: no kernel for {bell.dtype} blocks")
-    if br not in _BLOCK_ROWS or bc % 32 or not 32 <= bc <= 1024:
-        raise ValueError(f"bucket_matvec: block {(br, bc)} not supported "
-                         f"(rows in {_BLOCK_ROWS}, cols a multiple of 32)")
-    if x.shape != (n,):
-        raise ValueError(f"bucket_matvec: x has shape {tuple(x.shape)}, "
-                         f"operator has {n} columns")
-    if bell.device != x.device:
-        raise ValueError(f"bucket_matvec: panel on {bell.device}, x on "
-                         f"{x.device}")
+    code, scale = _check_launch("bucket_matvec", bell, x, scale, (n,))
     x32 = x.to(torch.float32).contiguous()
-    if scale is not None:
-        scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
-        if scale.shape != (m,):
-            raise ValueError("bucket_matvec: scale must have shape (m,)")
     y = torch.empty(m, dtype=torch.float32, device=x.device)
     n_pos = bell.pos_row.shape[0]
     if n_pos:
         from hybrid_gmres_tpu_torch.ops._build import load_library
 
-        lib = load_library()
+        lib = load_library("bucket_spmv")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bucket_matvec(
-            code, br, bc,
-            bell.blocks_flat.data_ptr(), bell.bcols_flat.data_ptr(),
-            bell.pos_off.data_ptr(), bell.pos_cnt.data_ptr(),
-            bell.pos_row.data_ptr(), x32.data_ptr(),
+            code, br, bc, *_panel_pointers(bell), x32.data_ptr(),
             None if scale is None else scale.data_ptr(), y.data_ptr(),
             n_pos, m, n, ctypes.c_void_p(stream))
         if err:
@@ -112,6 +132,83 @@ def bucket_matvec(bell: BucketedBlockELL, x, scale=None):
 
 
 bucket_matvec.launches = 0
+
+
+def bucket_matmat_plain(bell: BucketedBlockELL, X, scale=None):
+    """Plain PyTorch ``Y = diag(scale) A X`` for ``X`` (n, R): gather +
+    einsum per bucket, concatenate, un-sort through ``inv_perm`` (the twin
+    of the JAX reference path of ``bucketed_bsr_matmat``).  Accumulates in
+    float32; returns ``X.dtype``, row-major (m, R)."""
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    R = X.shape[1]
+    x_pad = torch.zeros((bell.ncb * bc, R), dtype=torch.float32,
+                        device=X.device)
+    x_pad[:n] = X.to(torch.float32)
+    xg3 = x_pad.view(bell.ncb, bc, R)
+    ys = []
+    for blocks, bcols in bell.buckets:
+        xg = xg3[bcols.long()]                      # (nbr_b, maxb_b, bc, R)
+        ys.append(torch.einsum("rbij,rbjk->rik", blocks.to(torch.float32),
+                               xg))
+    y_sorted = torch.cat(ys, dim=0)                  # (positions, br, R)
+    y = y_sorted[bell.inv_perm].reshape(-1, R)[:m]
+    if scale is not None:
+        y = scale[:, None] * y
+    return y.to(X.dtype)
+
+
+def bucket_matmat(bell: BucketedBlockELL, X, scale=None):
+    """``Y = diag(scale) A X`` for ``X`` (n, R) through K2: the CUDA kernel
+    for a CUDA ``X``, the plain version for a CPU ``X``.
+
+    One launch per call, whatever R: the kernel walks tiles of 8 columns
+    and reads the panel once per tile.  ``X`` is read through its strides,
+    so a row-major (n, R) tensor and the transposed view of an (R, n) one
+    (the batched solver's layout) both go in without a copy; ``Y`` comes
+    back in the same orientation (for a transposed ``X``, the transposed
+    view of a contiguous (R, m) tensor).  ``bucket_matmat.launches`` counts
+    the launches (the count moves only where the kernel is launched)."""
+    if X.device.type == "cpu":
+        return bucket_matmat_plain(bell, X, scale)
+    if X.device.type != "cuda":
+        raise ValueError(f"bucket_matmat: unsupported device {X.device}")
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    if X.ndim != 2:
+        raise ValueError(f"bucket_matmat: X must be (n, R), got "
+                         f"{tuple(X.shape)}")
+    R = X.shape[1]
+    code, scale = _check_launch("bucket_matmat", bell, X, scale, (n, R))
+    X32 = X.to(torch.float32)
+    if X32.stride(0) == 1 and X32.stride(1) >= max(n, 1):  # transposed view
+        Y = torch.empty((R, m), dtype=torch.float32, device=X.device).T
+    else:
+        X32 = X32.contiguous()
+        Y = torch.empty((m, R), dtype=torch.float32, device=X.device)
+    n_pos = bell.pos_row.shape[0]
+    if n_pos and R:
+        from hybrid_gmres_tpu_torch.ops._build import load_library
+
+        lib = load_library("bucket_spmm")
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        # two float4 loads per thread and block: row-major X whose rows
+        # start on 16-byte boundaries
+        vec = int(X32.stride(1) == 1 and X32.stride(0) % 4 == 0
+                  and X32.data_ptr() % 16 == 0)
+        err = lib.bucket_matmat(
+            code, br, bc, *_panel_pointers(bell), X32.data_ptr(),
+            None if scale is None else scale.data_ptr(), Y.data_ptr(),
+            n_pos, m, n, R, X32.stride(0), X32.stride(1), Y.stride(0),
+            Y.stride(1), vec, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"bucket_matmat: CUDA launch failed "
+                               f"(cudaError {err})")
+        bucket_matmat.launches += 1
+    return Y.to(X.dtype)
+
+
+bucket_matmat.launches = 0
 
 
 def bucket_rmatvec_plain(bell: BucketedBlockELL, u):
@@ -181,7 +278,8 @@ class BlockELLOperator(LinearOperator):
     ``PallasBSROperator``).
 
     ``rmatvec`` uses a separately packed panel of the transpose when one was
-    built (``with_adjoint=True``), applied through the same kernel K1.  For
+    built (``with_adjoint=True``), applied through the same kernel K1
+    (``rmatmat``: K2).  For
     a mismatched pair, pass B as its own operator — B is never derived from
     A.
 
@@ -205,9 +303,12 @@ class BlockELLOperator(LinearOperator):
     @classmethod
     def from_csr(cls, csr, block=(8, 128), dtype=torch.float32,
                  n_buckets: int = 4, with_adjoint: bool = True,
-                 device="cpu"):
+                 device="cuda"):
         """Pack a scipy CSR matrix.  ``dtype``: float32, bfloat16 or int8,
-        as a torch dtype or its name."""
+        as a torch dtype or its name.  ``device``: where the panels live;
+        the default is the card, and it raises without one (pass ``"cpu"``
+        for the CPU path)."""
+        device = require_device(device)
         dt = _storage_dtype(dtype)
         np_dt = np.int8 if dt == torch.int8 else (
             np.float32 if dt == torch.float32 else dt)
@@ -270,11 +371,18 @@ class BlockELLOperator(LinearOperator):
         return y.to(out_dtype)
 
     def matmat(self, X):
-        if X.device.type != "cpu":
-            raise NotImplementedError(_K2_TODO)
-        return super().matmat(X)
+        """Y (m, R) = A @ X (n, R) through K2: one panel read serves all
+        the columns of a tile."""
+        return bucket_matmat(self.fwd, X, self.fwd_scale)
 
     def rmatmat(self, U):
-        if U.device.type != "cpu":
-            raise NotImplementedError(_K4_TODO)
-        return super().rmatmat(U)
+        """Y (n, R) = A^T @ U (m, R): K2 on the adjoint panel when there is
+        one, ``U`` pre-scaled by ``fwd_scale``."""
+        if self.adj is None:
+            if U.device.type != "cpu":
+                raise NotImplementedError(_K4_TODO)
+            return super().rmatmat(U)
+        out_dtype = U.dtype
+        if self.fwd_scale is not None:
+            U = self.fwd_scale[:, None] * U.to(torch.float32)
+        return bucket_matmat(self.adj, U, self.adj_scale).to(out_dtype)

@@ -5,8 +5,14 @@ from hybrid_gmres_tpu_torch.problems.ct import (
     ct_mismatched,
     shepp_logan,
 )
+from hybrid_gmres_tpu_torch.problems.noise import (
+    add_noise,
+    perturb_backprojector,
+)
 
 __all__ = [
+    "add_noise",
+    "perturb_backprojector",
     "CTProblem",
     "FanBeamGeometry",
     "ct_gpu_operators",

@@ -101,14 +101,15 @@ def gmres_core(
     """
     if residual not in ("true", "estimate", "fused"):
         raise ValueError("residual must be 'true', 'estimate' or 'fused'")
-    if defer_histories:
-        raise _todo("defer_histories", "deferred items before item 7")
     if basis_dtype is not None:
-        raise _todo("basis_dtype", "deferred items before item 7")
+        raise _todo("basis_dtype", "item 5b")
     if not history:
-        raise _todo("history=False", "deferred items before item 7")
+        raise _todo("history=False", "item 5b")
     if resume_from is not None:
-        raise _todo("resume_from", "item 7 (utils/checkpoint.py)")
+        raise _todo("single-RHS resume_from", "item 5c (the batched solvers "
+                    "resume; utils/checkpoint.py is ported)")
+    if defer_histories and residual != "fused":
+        raise ValueError("defer_histories requires residual='fused'")
     if residual == "fused" and fused is None:
         raise ValueError("residual='fused' requires a FusedResidual spec")
 
@@ -124,6 +125,10 @@ def gmres_core(
          else torch.as_tensor(x_init, **like).clone())
     t = torch.zeros((maxit + 1,), **like)
     t[0] = beta
+    if defer_histories:
+        return _gmres_core_deferred(
+            fused, project_solve, solution_fn, error_fn, maxit, tol,
+            x_shape, breakdown_tol, Q, H, t, beta)
     IMG = S = None
     if residual == "fused":
         IMG = _column_major(fused.rhs.shape[0], maxit, dtype, device)
@@ -173,6 +178,68 @@ def gmres_core(
                        IMG=IMG, S=S, active=active)
 
 
+def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
+                         tol, x_shape, breakdown_tol, Q, H, t, beta):
+    """Deferred-histories fused GMRES: Arnoldi-only loop, then batched
+    projected solves and matmul-shaped histories (see ``gmres_core``).
+    ``solution_fn`` and ``error_fn`` are called once, on the (maxit, maxit)
+    matrix whose column j is the padded ``y`` of step j+1."""
+    dtype, device = t.dtype, t.device
+    m_img = fused.rhs.shape[0]
+    IMG = _column_major(m_img, maxit, dtype, device)
+    S = (_column_major(x_shape, maxit, dtype, device)
+         if fused.solution_from_image else None)
+    active = beta > 0
+    nsteps = torch.zeros((), dtype=torch.int32, device=device)
+    broke = torch.zeros((), dtype=torch.bool, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    for k in range(maxit):
+        u = fused.first_mv(Q[:, k])
+        w = fused.second_mv(u)
+        IMG[:, k] = torch.where(active, u if fused.img == "first" else w,
+                                zero)
+        if S is not None:
+            S[:, k] = torch.where(active, u, zero)
+        st = arnoldi_orthogonalize(Q, H, k, w, breakdown_tol, active)
+        nsteps = nsteps + active
+        broke = broke | (active & st.breakdown)
+        active = active & ~st.breakdown
+
+    ks = torch.arange(1, maxit + 1, dtype=torch.int32, device=device)
+    # all maxit projected problems in one batched call: Y[j] = y_{j+1}
+    Y = project_solve(H.expand(maxit, -1, -1), Q, t.expand(maxit, -1), ks)
+    # full float32 products (TF32 off): the post-loop matmuls must
+    # reproduce the in-loop per-iteration matvecs
+    res_full = torch.linalg.vector_norm(
+        fused.rhs[:, None] - IMG @ Y.T, dim=0) / fused.rhs_norm
+    if fused.solution_from_image:
+        X = S @ Y.T
+        if fused.x_offset is not None:
+            X = X + fused.x_offset[:, None]
+    else:
+        X = solution_fn(Q, Y.T)                     # (x_shape, maxit)
+    err_full = error_fn(X)
+
+    # Post-hoc stopping: the first k with res <= tol, bounded by the
+    # Arnoldi breakdown point — same niters/x/NaN-masking as the masked loop
+    hit = (ks <= nsteps) & (res_full <= tol)
+    any_hit = hit.any()
+    first_hit = torch.argmax(hit.to(torch.int32)).to(torch.int32) + 1
+    niters = torch.where(any_hit, first_hit, nsteps)
+    rec = ks <= niters
+    nan = torch.full((), float("nan"), dtype=dtype, device=device)
+    res_hist = torch.where(rec, res_full, nan)
+    err_hist = torch.where(rec, err_full, nan)
+    slot = torch.clamp(niters - 1, min=0).long()
+    x = torch.where(niters > 0, X.index_select(1, slot[None])[:, 0],
+                    torch.zeros((x_shape,), dtype=dtype, device=device))
+    # the active flag an equivalent masked loop would end with: a breakdown
+    # ON the final iteration still counts in nsteps but ends inactive
+    active_f = (nsteps == maxit) & ~any_hit & ~broke
+    return GMRESResult(x, err_hist, res_hist, niters, Q, H, beta, IMG=IMG,
+                       S=S, active=active_f)
+
+
 def rel_residual_fn(A_op, b):
     bnorm = torch.linalg.vector_norm(b)
 
@@ -183,12 +250,14 @@ def rel_residual_fn(A_op, b):
 
 
 def rel_error_fn(x_true):
+    """Relative error of an iterate (n,), or of each column of (n, j)."""
     if x_true is None:
-        return lambda x: torch.full((), float("nan"), dtype=x.dtype,
+        return lambda x: torch.full(x.shape[1:], float("nan"), dtype=x.dtype,
                                     device=x.device)
     xt_norm = torch.linalg.vector_norm(x_true)
 
     def f(x):
-        return torch.linalg.vector_norm(x - x_true) / xt_norm
+        xt = x_true if x.ndim == 1 else x_true[:, None]
+        return torch.linalg.vector_norm(x - xt, dim=0) / xt_norm
 
     return f

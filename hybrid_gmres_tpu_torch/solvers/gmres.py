@@ -7,12 +7,14 @@ Twin of ``hybrid_gmres_tpu/solvers/gmres.py``:
   * hybrid (PTR): the projected problem is Tikhonov-regularized,
     ``y = (Hbar'Hbar + lam I)^{-1} Hbar' (beta e1)``.
 
-``lam=None`` gives the non-hybrid variant, a scalar the hybrid one.
-``lam="gcv"`` and the restarted wrappers are not ported yet (ROADMAP).
+``lam=None`` gives the non-hybrid variant, a scalar the hybrid one,
+``lam="gcv"`` the per-iteration GCV-optimal lambda over a grid.  The
+restarted wrappers are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hybrid_gmres_tpu_torch.krylov.projected import (
@@ -30,21 +32,34 @@ from hybrid_gmres_tpu_torch.solvers.common import (
 from hybrid_gmres_tpu_torch.utils.checkpoint import resume_fingerprint
 
 
-def _make_project_solve(lam):
-    """Projected-solve strategy: None -> plain LS; scalar -> fixed-lambda
-    Tikhonov."""
+def _make_project_solve(lam, trace_dim, gcv_grid):
+    """Projected-solve strategy: None -> plain LS; scalar (or a per-RHS
+    tensor) -> fixed-lambda Tikhonov; "gcv" -> at every iteration the grid
+    lambda minimizing the GCV functional of the CURRENT projected problem
+    (two SVDs per problem, O(k) per grid point).
+
+    The returned ``solve(H, Q, t, kdim)`` takes leading batch dimensions on
+    ``H`` and ``t`` (see ``krylov/projected.py``)."""
     if lam is None:
         return lambda H, Q, t, kdim: projected_ls_solve(H, t, kdim)
     if isinstance(lam, str):
-        if lam == "gcv":
-            raise NotImplementedError(
-                "lam='gcv' needs reg/gcv.py, which is not ported yet: see "
-                "ROADMAP queue 1, item 8")
-        raise ValueError("lam must be None, a scalar, or 'gcv'")
+        if lam != "gcv":
+            raise ValueError("lam must be None, a scalar, or 'gcv'")
+        from hybrid_gmres_tpu_torch.reg.gcv import gcv_grid_lambda
+
+        if gcv_grid is None:
+            gcv_grid = np.logspace(-8, -1, 50)
+
+        def solve(H, Q, t, kdim):
+            grid = torch.as_tensor(gcv_grid, dtype=H.dtype, device=H.device)
+            lam_k = gcv_grid_lambda(H, t, kdim, grid, trace_dim)
+            return projected_tikhonov_solve(H, t, lam_k, kdim)
+
+        return solve
     return lambda H, Q, t, kdim: projected_tikhonov_solve(H, t, lam, kdim)
 
 
-def _setup(A, B, b, x_true, x0, maxit, lam):
+def _setup(A, B, b, x_true, x0, maxit, lam, trace_axis, gcv_grid):
     A = as_operator(A)
     B = as_operator(B)
     b = torch.as_tensor(b)
@@ -53,7 +68,13 @@ def _setup(A, B, b, x_true, x0, maxit, lam):
     if x0 is not None:
         x0 = torch.as_tensor(x0, dtype=b.dtype, device=b.device)
     maxit = min(A.shape) if maxit is None else int(maxit)
-    return A, B, b, x_true, x0, maxit, _make_project_solve(lam)
+    return A, B, b, x_true, x0, maxit, _make_project_solve(
+        lam, A.shape[trace_axis], gcv_grid)
+
+
+def _offset(x0, y):
+    """``x0`` shaped to add to ``Q @ y`` for a vector or a matrix ``y``."""
+    return x0 if y.ndim == 1 else x0[:, None]
 
 
 def ab_gmres(
@@ -66,6 +87,7 @@ def ab_gmres(
     lam=None,
     history: bool = True,
     breakdown_tol: float = 0.0,
+    gcv_grid=None,
     resume_from: GMRESResult | None = None,
     x0=None,
     residual: str = "true",
@@ -74,13 +96,16 @@ def ab_gmres(
 ) -> GMRESResult:
     """AB-GMRES: Krylov space in m-space on ``M = A B``; ``x = B Q_k y``.
 
+    ``lam``: None (non-hybrid LS), scalar (hybrid PTR), or "gcv"
+    (per-iteration GCV-optimal lambda over ``gcv_grid``).
     ``x0``: optional initial iterate (``r0 = b - A x0``, ``x = x0 + B Q_k
     y``).  ``residual="fused"`` stores ``B q_k`` and ``A (B q_k)`` so the
     per-iteration solution and TRUE residual are small matmuls — 2
     SpMVs/iteration instead of 4, identical numbers.
+    ``defer_histories`` (fused only): see ``solvers/common.py:gmres_core``.
     """
     A, B, b, x_true, x0, maxit, project_solve = _setup(
-        A, B, b, x_true, x0, maxit, lam)
+        A, B, b, x_true, x0, maxit, lam, 0, gcv_grid)
 
     def krylov_mv(q):
         return A.matvec(B.matvec(q))
@@ -133,6 +158,7 @@ def ba_gmres(
     lam=None,
     history: bool = True,
     breakdown_tol: float = 0.0,
+    gcv_grid=None,
     resume_from: GMRESResult | None = None,
     x0=None,
     residual: str = "true",
@@ -141,12 +167,13 @@ def ba_gmres(
 ) -> GMRESResult:
     """BA-GMRES: Krylov space in n-space on ``M = B A`` with ``r0 = B b``.
 
+    ``lam``, ``gcv_grid`` and ``defer_histories`` as in :func:`ab_gmres`.
     ``x0``: optional initial iterate (``r0 = B (b - A x0)``, ``x = x0 + Q_k
     y``).  ``residual="fused"`` stores ``A q_k`` so the TRUE residual needs
     no extra SpMV: 2 SpMVs per iteration.
     """
     A, B, b, x_true, x0, maxit, project_solve = _setup(
-        A, B, b, x_true, x0, maxit, lam)
+        A, B, b, x_true, x0, maxit, lam, 1, gcv_grid)
 
     def krylov_mv(q):
         return B.matvec(A.matvec(q))
@@ -160,7 +187,7 @@ def ba_gmres(
         rhs = b - A.matvec(x0)
 
         def solution_fn(Q, y):
-            return x0 + Q[:, :maxit] @ y
+            return _offset(x0, y) + Q[:, :maxit] @ y
     r0 = B.matvec(rhs)
     fused = (
         FusedResidual(first_mv=A.matvec, second_mv=B.matvec, rhs=rhs,

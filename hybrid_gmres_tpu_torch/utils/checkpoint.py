@@ -1,13 +1,69 @@
-"""Solve fingerprints (PyTorch port of ``utils/checkpoint.py``).
+"""Krylov-state checkpoint / resume (PyTorch port of ``utils/checkpoint.py``).
 
-Only :func:`resume_fingerprint` is ported, so that ``GMRESResult.fp`` holds
-the same (3,) encoding as the JAX package.  Save, load and resume are not
-ported yet (ROADMAP queue 1, item 7).
+A solver result carries the full padded Krylov factorization, so it can be
+saved and a solve *continued* from it with a larger iteration budget:
+``resume(save(run(maxit=k)), maxit=K)`` equals ``run(maxit=K)``.  The
+``.npz`` layout (keys, shapes, dtypes) is the JAX package's, so either
+package loads the other's file.  The GKB state functions are not ported yet
+(ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
+
+from hybrid_gmres_tpu_torch.utils.device import require_device
+
+_FIELDS = ("x", "err_hist", "res_hist", "niters", "Q", "H", "beta")
+_OPTIONAL = ("IMG", "S", "active", "fp")
+
+
+def save_state(path: str, result) -> None:
+    """Write a solver result (single-RHS or batched) as a compressed
+    ``.npz``; the optional fields are written only when present."""
+    d = {name: getattr(result, name).detach().cpu().numpy()
+         for name in _FIELDS}
+    d["niters"] = d["niters"].astype(np.int32)
+    for name in _OPTIONAL:
+        val = getattr(result, name, None)
+        if val is not None:
+            d[name] = val.detach().cpu().numpy()
+    np.savez_compressed(path, **d)
+
+
+def load_state(path: str, device="cuda"):
+    """Load a saved solver state onto ``device`` (the card by default; it
+    raises without one, pass ``"cpu"`` for the CPU path).
+
+    Legacy checkpoints (saved before the ``active`` flag existed) resume
+    through a heuristic, ``active = (niters == len(res_hist))``, which
+    cannot tell a run that stopped exactly on its final budgeted iteration
+    from one that ran out of budget.  A ``UserWarning`` is emitted for
+    exactly that ambiguous case.
+    """
+    # the solvers import this module for the fingerprint
+    from hybrid_gmres_tpu_torch.solvers.common import GMRESResult
+
+    device = require_device(device)
+    with np.load(path) as z:
+        arrays = {name: z[name] for name in z.files}
+    out = GMRESResult(**{
+        name: torch.as_tensor(arrays[name], device=device)
+        for name in _FIELDS + _OPTIONAL if name in arrays})
+    out = out._replace(niters=out.niters.to(torch.int32))
+    ni = arrays["niters"]
+    if "active" not in arrays and ni.ndim == 0 and \
+            int(ni) == len(arrays["res_hist"]):
+        warnings.warn(
+            "legacy checkpoint without an 'active' flag whose niters equals "
+            "its budget: resume will assume the run was still ACTIVE, which "
+            "is wrong if it stopped (tol/breakdown) exactly on its final "
+            "iteration — re-save with the current version to disambiguate",
+            UserWarning, stacklevel=2)
+    return out
 
 
 def resume_fingerprint(x0, lam, tag: str = "", device=None):
@@ -42,3 +98,63 @@ def resume_fingerprint(x0, lam, tag: str = "", device=None):
         w = torch.cos(torch.arange(x.shape[0], **f32) * 0.7368) + 0.5
         xs = torch.dot(x, w)
     return torch.stack([xs, lam_val, tag_val])
+
+
+def check_fingerprint(resume_from, x0, lam, tag: str = "") -> None:
+    """Verify a resume's ``(x0, lam)`` against the checkpointed fingerprint
+    (reads both on the host).  No-op when the checkpoint predates
+    fingerprints (``fp is None``)."""
+    stored = getattr(resume_from, "fp", None)
+    if stored is None:
+        return
+    s = stored.detach().cpu().numpy()
+    e = resume_fingerprint(x0, lam, tag=tag, device="cpu").numpy()
+    if s.size == 2:
+        # legacy (2,) fingerprint (lam slot carried an additive tag
+        # offset): untagged checkpoints check cleanly with tag slot 0;
+        # tagged ones fail the exact lam compare below — conservative
+        s = np.append(s, 0.0)
+    # x0 slot is a lossy float checksum — tolerance; lam and tag slots are
+    # exact encodings of the argument, so any difference means a genuinely
+    # different solve
+    x0_ok = np.allclose(s[0], e[0], rtol=1e-5, atol=1e-6, equal_nan=True)
+    if not (x0_ok and s[1] == e[1] and s[2] == e[2]):
+        raise ValueError(
+            f"resume fingerprint mismatch: checkpoint was created with "
+            f"(x0, lam, tag) fingerprint {s.tolist()}, resume passed "
+            f"{e.tolist()} — resuming with a different x0/lam silently "
+            "corrupts the continuation; pass the ORIGINAL x0/lam (to "
+            "change them, start a fresh solve warm-started from .x)")
+
+
+def check_resumable(resume_from) -> None:
+    """Reject restarted aggregates: their ``niters`` counts ALL cycles but
+    ``Q``/``H`` hold only the last cycle's factorization."""
+    k0 = int(resume_from.niters)
+    if k0 > resume_from.H.shape[1]:
+        raise ValueError(
+            f"resume_from.niters={k0} exceeds its checkpointed budget "
+            f"{resume_from.H.shape[1]} — this is a restarted result, which "
+            "holds only the last cycle's factorization and is not "
+            "resumable; warm-start a new solve from its .x instead")
+
+
+def pad_state(result, maxit: int):
+    """Grow a single-RHS padded factorization to a larger iteration
+    budget (histories padded with NaN, bases with zero columns)."""
+    old = result.H.shape[1]
+    if maxit < old:
+        raise ValueError(f"cannot shrink state: maxit={maxit} < {old}")
+    if maxit == old:
+        return result
+    extra = maxit - old
+    pad = torch.nn.functional.pad
+
+    def pad_cols(M):
+        return None if M is None else pad(M, (0, extra))
+
+    return result._replace(
+        err_hist=pad(result.err_hist, (0, extra), value=float("nan")),
+        res_hist=pad(result.res_hist, (0, extra), value=float("nan")),
+        Q=pad_cols(result.Q), H=pad(result.H, (0, extra, 0, extra)),
+        IMG=pad_cols(result.IMG), S=pad_cols(result.S))

@@ -1,9 +1,12 @@
-"""Carry parameters across from the JAX package.
+"""Carry parameters and solver states across from the JAX package.
 
 :func:`operator_from_numpy` builds the port's :class:`BlockELLOperator` from
 the leaves of a JAX ``PallasBSROperator`` handed over as numpy arrays, so
-both packages compute with the very same panels.  Nothing here imports JAX:
-the caller does ``np.asarray`` on each leaf.
+both packages compute with the very same panels;
+:func:`gmres_result_from_numpy` does the same for a solver result, so the
+port can resume a solve the JAX package began.  Nothing here imports JAX:
+the caller does ``np.asarray`` on each leaf.  These helpers exist for the
+parity tests, so ``device`` is a required keyword.
 """
 
 from __future__ import annotations
@@ -14,10 +17,11 @@ import torch
 from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
 from hybrid_gmres_tpu_torch.ops.sparse import BucketedBlockELL
 from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
+from hybrid_gmres_tpu_torch.solvers.common import GMRESResult
 
 
-def bell_from_numpy(buckets, inv_perm, shape, ncb, packed4=False,
-                    device="cpu") -> BucketedBlockELL:
+def bell_from_numpy(buckets, inv_perm, shape, ncb, packed4=False, *,
+                    device) -> BucketedBlockELL:
     """A ``BucketedBlockELL`` from the leaves of the JAX container: the
     ``(blocks, bcols)`` pair of each bucket, ``inv_perm``, ``shape``,
     ``ncb`` and ``packed4``.  The JAX ``row_group`` is not carried: it only
@@ -33,7 +37,7 @@ def _vec(a, device):
 
 
 def operator_from_numpy(fwd, adj=None, fwd_scale=None, adj_scale=None,
-                        fro_sq=None, device="cpu") -> BlockELLOperator:
+                        fro_sq=None, *, device) -> BlockELLOperator:
     """The port's operator from a JAX ``PallasBSROperator``'s leaves.
 
     ``fwd``/``adj``: mappings with the keys of :func:`bell_from_numpy`
@@ -51,6 +55,24 @@ def operator_from_numpy(fwd, adj=None, fwd_scale=None, adj_scale=None,
     )
 
 
-def dense_from_numpy(mat, device="cpu") -> DenseOperator:
+def dense_from_numpy(mat, *, device) -> DenseOperator:
     """The port's ``DenseOperator`` from a JAX ``DenseOperator.mat``."""
     return DenseOperator(torch.as_tensor(np.asarray(mat), device=device))
+
+
+def gmres_result_from_numpy(result, *, device) -> GMRESResult:
+    """The port's ``GMRESResult`` from a JAX one, single-RHS or batched.
+
+    ``result``: any object with the fields of ``GMRESResult`` as arrays
+    that ``np.asarray`` takes (the JAX NamedTuple itself will do); absent or
+    None fields stay None.  Shapes and dtypes are kept; ``niters`` becomes
+    int32 and ``active`` bool, as the port's solvers produce them."""
+    out = {}
+    for name in GMRESResult._fields:
+        val = getattr(result, name, None)
+        out[name] = None if val is None else torch.as_tensor(
+            np.array(val), device=device)
+    out["niters"] = out["niters"].to(torch.int32)
+    if out["active"] is not None:
+        out["active"] = out["active"].to(torch.bool)
+    return GMRESResult(**out)

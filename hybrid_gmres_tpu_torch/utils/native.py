@@ -1,9 +1,10 @@
 """Build + ctypes bindings for the native C++ CT assembler (jax-free).
 
-Twin of ``hybrid_gmres_tpu/utils/native.py``.  It compiles the SAME source,
-``hybrid_gmres_tpu/native/ct_builder.cpp``, read by path (not copied and not
-imported), with ``g++ -O3`` into the port's own build directory, keyed by a
-content hash.  No pybind11 — plain C ABI + ctypes.
+Twin of ``hybrid_gmres_tpu/utils/native.py``.  It compiles the port's own
+copy of the assembler, ``csrc/ct_builder.cpp`` (the same source as the JAX
+package's; a CPU test holds the two builds to each other bit for bit), with
+``g++ -O3`` into the port's own build directory, keyed by a content hash.
+No pybind11 — plain C ABI + ctypes.
 """
 
 from __future__ import annotations
@@ -17,8 +18,7 @@ import threading
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CT_BUILDER_SRC = os.path.join(os.path.dirname(_PKG_DIR), "hybrid_gmres_tpu",
-                               "native", "ct_builder.cpp")
+_CT_BUILDER_SRC = os.path.join(_PKG_DIR, "csrc", "ct_builder.cpp")
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 

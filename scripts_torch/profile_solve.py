@@ -5,16 +5,19 @@
 
 Builds the bench scenario of ``chip_smoke.py`` at n=64 and n=128 (int8 Morton
 block-ELL operators, hybrid BA-GMRES at maxit=100, lam=1e-2, fused
-residual) and times 5 solves at each n after one warm-up, all before the
-first profiler session (the profiler slows the host loop after it, too).
-Then it runs one solve per n under ``torch.profiler`` (CPU and CUDA
-activities).  Prints one JSON line per n with:
+residual) in three modes — the single-RHS solve, and the serving batch of
+R=8 sinograms (noise seeds 0..7) with in-loop and with deferred histories —
+and times 5 solves of each after one warm-up, all before the first profiler
+session (the profiler slows the host loop after it, too).  Then it runs one
+solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
+Prints one JSON line per size and mode with:
 
   * ``wall_ms``: the 5 solves without the profiler (CUDA events);
   * ``traced_ms``: host time of the profiled solve, synchronized;
   * ``busy_ms``: the union of all device intervals (kernels, copies,
     sets) in the trace, and ``busy_share`` = busy / traced;
-  * ``launches``: device activities in the trace;
+  * ``launches``: device activities in the trace, and
+    ``launches_per_iteration`` = launches / 100;
   * ``kinds``: device milliseconds and activity count by kind.
 
 Needs one CUDA card.
@@ -34,9 +37,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+import chip_smoke  # noqa: E402  (imports neither torch nor the port)
+
 # first match wins; matched against the lower-cased activity name
 KINDS = (
     ("K1 bucket_matvec", ("bucket_matvec",)),
+    ("K2 bucket_matmat", ("bucket_matmat",)),
     ("Cholesky", ("potrf", "getrf", "cholesky")),
     ("triangular solves", ("trsm", "trsv", "triangular")),
     ("cuBLAS gemv/gemm/dot", ("gemv", "gemm", "dot_kernel", "dot")),
@@ -68,7 +74,7 @@ def busy_union_us(intervals):
     return total
 
 
-def profile(n, run, wall, info):
+def profile(n, mode, run, wall, info):
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -88,7 +94,7 @@ def profile(n, run, wall, info):
     events = [ev for ev in trace.get("traceEvents", [])
               if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS]
     if not events:
-        sys.exit(f"n={n}: the trace holds no device activity")
+        sys.exit(f"n={n} {mode}: the trace holds no device activity")
     kinds = {}
     for ev in events:
         ms, cnt = kinds.get(kind_of(ev), (0.0, 0))
@@ -96,10 +102,11 @@ def profile(n, run, wall, info):
     busy_ms = busy_union_us([(ev["ts"], ev["ts"] + ev["dur"])
                              for ev in events]) / 1e3
     print(json.dumps({
-        "n": n, "card": card(), "wall_ms_median": float(
+        "n": n, "mode": mode, "card": card(), "wall_ms_median": float(
             np.median(wall)), "wall_ms": wall, "traced_ms": traced_ms,
         "busy_ms": busy_ms, "busy_share": busy_ms / traced_ms,
         "launches": len(events),
+        "launches_per_iteration": len(events) / chip_smoke.MAXIT,
         "kinds": {k: {"ms": ms, "count": c} for k, (ms, c) in sorted(
             kinds.items(), key=lambda kv: -kv[1][0])},
         "A_panel_mb": info["A_panel_mb"], "B_panel_mb": info["B_panel_mb"]}),
@@ -118,19 +125,25 @@ def card():
 def main():
     import torch
 
-    import chip_smoke
-
     if not torch.cuda.is_available():
         sys.exit("profile_solve.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    runs = {}
+    runs = []
     for n in (64, 128):
-        A_op, B_op, b, x_true, info, _ = chip_smoke.make_problem(n)
-        run = partial(chip_smoke.solve, A_op, B_op, b, x_true)
-        runs[n] = (run, chip_smoke.per_call_ms(run, reps=5), info)
-    for n, (run, wall, info) in runs.items():
-        profile(n, run, wall, info)
+        P = chip_smoke.make_problem(n)
+        b8 = torch.as_tensor(chip_smoke.noisy_sinograms(P, range(8)),
+                             device="cuda")
+        for mode, run in (
+                ("single", partial(chip_smoke.solve, P)),
+                ("batched R=8 in-loop",
+                 partial(chip_smoke.solve_batched, P, b8, False)),
+                ("batched R=8 deferred",
+                 partial(chip_smoke.solve_batched, P, b8, True))):
+            runs.append((n, mode, run, chip_smoke.per_call_ms(run, reps=5),
+                         P.info))
+    for run in runs:
+        profile(*run)
 
 
 if __name__ == "__main__":

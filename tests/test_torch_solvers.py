@@ -56,7 +56,8 @@ def test_gmres_matches_jax(method, lam, residual):
     jr = jsolve(jnp.asarray(A), jnp.asarray(B), jnp.asarray(b),
                 jnp.asarray(x_true), tol=0.0, maxit=K, lam=lam,
                 residual=residual)
-    tr = tsolve(dense_from_numpy(A), dense_from_numpy(B),
+    tr = tsolve(dense_from_numpy(A, device="cpu"),
+                dense_from_numpy(B, device="cpu"),
                 torch.from_numpy(b), torch.from_numpy(x_true), tol=0.0,
                 maxit=K, lam=lam, residual=residual)
     _compare(jr, tr)
@@ -159,12 +160,62 @@ def test_fingerprint_matches_jax(lam):
 
 
 @pytest.mark.parametrize("option", [
-    dict(defer_histories=True), dict(basis_dtype=torch.float32),
-    dict(history=False), dict(resume_from=object()), dict(lam="gcv")])
+    dict(basis_dtype=torch.bfloat16, defer_histories=True),
+    dict(basis_dtype=torch.float32), dict(history=False),
+    dict(resume_from=object()), dict(history=False, lam="gcv")])
 def test_unported_options_raise(option):
+    """``basis_dtype``, ``history=False`` and single-RHS ``resume_from``
+    still wait (ROADMAP 5b, 5c), also combined with the options that are
+    ported by now (``defer_histories``, ``lam="gcv"``)."""
     A, B, b, _ = _pair()
     kw = dict(tol=0.0, maxit=3, lam=1e-3, residual="fused")
     kw.update(option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgmres.ba_gmres(torch.from_numpy(A), torch.from_numpy(B),
                         torch.from_numpy(b), **kw)
+
+
+@pytest.mark.parametrize("method", ["ba", "ab"])
+@pytest.mark.parametrize("lam", [None, 1e-3, "gcv"])
+def test_defer_histories_and_gcv_match_jax(method, lam):
+    """Single-RHS ``defer_histories=True`` (and ``lam="gcv"``, in-loop and
+    deferred) against the JAX package: histories over K steps, x, niters
+    and the final active flag, with a warm start."""
+    A, B, b, x_true = _pair(seed=4)
+    x0 = 0.3 * x_true
+    jsolve = getattr(jgmres, f"{method}_gmres")
+    tsolve = getattr(tgmres, f"{method}_gmres")
+    for defer in (False, True):
+        kw = dict(tol=0.0, maxit=K, lam=lam, residual="fused",
+                  defer_histories=defer)
+        jr = jsolve(jnp.asarray(A), jnp.asarray(B), jnp.asarray(b),
+                    jnp.asarray(x_true), x0=jnp.asarray(x0), **kw)
+        tr = tsolve(torch.from_numpy(A), torch.from_numpy(B),
+                    torch.from_numpy(b), torch.from_numpy(x_true),
+                    x0=torch.from_numpy(x0), **kw)
+        _compare(jr, tr)
+        np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-8,
+                                   atol=1e-10)
+        assert bool(tr.active) == bool(jr.active)
+        assert tr.IMG.shape == jr.IMG.shape
+        np.testing.assert_allclose(tr.IMG.numpy(), np.asarray(jr.IMG),
+                                   atol=1e-12)
+
+
+def test_defer_histories_post_hoc_stop_matches_jax():
+    """A tolerance hit inside the budget: the deferred mode reports the
+    masked loop's niters, NaN tail, x and inactive flag."""
+    A, B, b, x_true = _pair(m=30, n=12, seed=2)
+    kw = dict(tol=1e-2, maxit=12, lam=None, residual="fused",
+              defer_histories=True)
+    jr = jgmres.ba_gmres(jnp.asarray(A), jnp.asarray(B), jnp.asarray(b),
+                         jnp.asarray(x_true), **kw)
+    tr = tgmres.ba_gmres(torch.from_numpy(A), torch.from_numpy(B),
+                         torch.from_numpy(b), torch.from_numpy(x_true), **kw)
+    assert 0 < int(jr.niters) < 12
+    _compare(jr, tr, k=int(jr.niters))
+    assert not bool(tr.active) and not bool(jr.active)
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-9)
+    with pytest.raises(ValueError, match="fused"):
+        tgmres.ba_gmres(torch.from_numpy(A), torch.from_numpy(B),
+                        torch.from_numpy(b), maxit=3, defer_histories=True)

@@ -1,4 +1,4 @@
-"""PyTorch port: block-ELL packer and the K1 module against the JAX package.
+"""PyTorch port: block-ELL packer and the K1/K2 module against the JAX package.
 
 The same numpy inputs go through both packages.  The JAX operators run their
 Pallas kernels in interpret mode on the CPU; the port's wrapper takes its
@@ -65,7 +65,7 @@ def _convert(jop):
         _leaves(jop.fwd), None if jop.adj is None else _leaves(jop.adj),
         fwd_scale=None if jop.fwd_scale is None else np.asarray(jop.fwd_scale),
         adj_scale=None if jop.adj_scale is None else np.asarray(jop.adj_scale),
-        fro_sq=np.asarray(jop.fro_sq))
+        fro_sq=np.asarray(jop.fro_sq), device="cpu")
 
 
 def _close(got, want, rtol=RTOL):
@@ -93,7 +93,8 @@ def test_packer_matches_jax(source, dtype):
         kw = dict(block=block, dtype=np_dt, n_buckets=n_buckets,
                   row_group=row_group)
         _assert_panels_equal(jsparse.bucketed_block_ell_from_csr(csr, **kw),
-                             tsparse.bucketed_block_ell_from_csr(csr, **kw))
+                             tsparse.bucketed_block_ell_from_csr(
+                                 csr, device="cpu", **kw))
 
 
 def test_flat_layout_is_what_the_kernel_walks():
@@ -104,7 +105,7 @@ def test_flat_layout_is_what_the_kernel_walks():
     csr_q, s = tspmv._row_quantize_csr(_random_csr(m=1001, n=650))
     bell = tsparse.bucketed_block_ell_from_csr(csr_q, block=(8, 128),
                                                dtype=np.int8, n_buckets=4,
-                                               row_group=1)
+                                               row_group=1, device="cpu")
     op = tspmv.BlockELLOperator(bell, fwd_scale=torch.from_numpy(s))
     assert len(bell.buckets) > 1
     for blocks, _ in bell.buckets:   # bucket tensors are views of the flat
@@ -187,28 +188,150 @@ def test_rmatvec_without_adjoint_panel_plain_matches_jax_k3():
 
 
 def test_unported_kernels_raise_on_a_device_tensor():
-    """K2/K3/K4 are not ported: a non-CPU tensor raises, naming the kernel
-    (the meta device stands in for CUDA here)."""
+    """K3/K4 are not ported: a non-CPU tensor raises, naming the kernel (the
+    meta device stands in for CUDA here).  K1 and K2 are ported and take
+    only CPU and CUDA tensors: they raise on any other device, and never
+    fall back to their plain versions."""
     op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
-                                         with_adjoint=False)
+                                         with_adjoint=False, device="cpu")
     with pytest.raises(NotImplementedError, match="K3"):
         op.rmatvec(torch.zeros(300, device="meta"))
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(ValueError, match="bucket_matmat: unsupported device"):
         op.matmat(torch.zeros((200, 2), device="meta"))
+    with pytest.raises(ValueError, match="bucket_matvec: unsupported device"):
+        op.matvec(torch.zeros(200, device="meta"))
     with pytest.raises(NotImplementedError, match="K4"):
         op.rmatmat(torch.zeros((300, 2), device="meta"))
     with pytest.raises(NotImplementedError, match="int4"):
         tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
-                                        dtype="int4")
+                                        dtype="int4", device="cpu")
     # the CPU plain paths still work
     X = torch.randn(200, 2)
     np.testing.assert_allclose(
         op.matmat(X).numpy(),
-        torch.stack([op.matvec(X[:, 0]), op.matvec(X[:, 1])], 1).numpy())
+        torch.stack([op.matvec(X[:, 0]), op.matvec(X[:, 1])], 1).numpy(),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_constructors_default_to_the_card_and_never_fall_back():
+    """Without a CUDA device the default ``device="cuda"`` raises a clear
+    error in every public constructor; the convert helpers need ``device``
+    spelled out."""
+    from hybrid_gmres_tpu_torch.utils import convert
+    from hybrid_gmres_tpu_torch.utils.checkpoint import load_state
+
+    if torch.cuda.is_available():
+        pytest.skip("this test checks the error raised without a CUDA device")
+    csr = _random_csr(m=300, n=200)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tspmv.BlockELLOperator.from_csr(csr)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsparse.bucketed_block_ell_from_csr(csr)
+    bell = tsparse.bucketed_block_ell_from_csr(csr, device="cpu")
+    leaves = dict(buckets=[(b.numpy(), c.numpy()) for b, c in bell.buckets],
+                  inv_perm=bell.inv_perm.numpy(), shape=bell.shape,
+                  ncb=bell.ncb)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsparse.BucketedBlockELL.from_numpy(**leaves)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_state("unused.npz")
+    for fn, args in ((convert.bell_from_numpy, leaves.values()),
+                     (convert.operator_from_numpy, (leaves,)),
+                     (convert.dense_from_numpy, (np.eye(2),))):
+        with pytest.raises(TypeError, match="device"):
+            fn(*args)
+
+
+@pytest.mark.parametrize("block", [(32, 128), (8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_k2_plain_matches_jax_interpret_kernel(block, dtype):
+    """K2's plain version against the JAX multi-RHS kernel in interpret
+    mode, forward and through the adjoint panel, and against K1's plain
+    version column by column (rtol 1e-5 of the largest entry: float32
+    accumulation in another order).  R=5 is not a multiple of anything."""
+    csr = _random_csr()
+    jop = jspmv.PallasBSROperator.from_csr(
+        csr, block=block, dtype=jnp.dtype(dtype), n_buckets=4,
+        with_adjoint=True, interpret=True, row_group=2)
+    op = _convert(jop)
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((csr.shape[1], 5)).astype(np.float32)
+    U = rng.standard_normal((csr.shape[0], 5)).astype(np.float32)
+    Y = op.matmat(torch.from_numpy(X))
+    Z = op.rmatmat(torch.from_numpy(U))
+    assert Y.shape == (csr.shape[0], 5) and Z.shape == (csr.shape[1], 5)
+    _close(Y.numpy(), jop.matmat(jnp.asarray(X)))
+    _close(Z.numpy(), jop.rmatmat(jnp.asarray(U)))
+    for j in range(5):
+        _close(Y[:, j].numpy(), op.matvec(torch.from_numpy(X[:, j])).numpy())
+        _close(Z[:, j].numpy(), op.rmatvec(torch.from_numpy(U[:, j])).numpy())
+    # a transposed view of an (R, n) array, the batched solver's layout
+    Xt = torch.from_numpy(np.ascontiguousarray(X.T)).T
+    np.testing.assert_array_equal(op.matmat(Xt).numpy(), Y.numpy())
+
+
+def test_k2_float64_and_no_adjoint_panel_match_jax():
+    """Float64 columns (the CPU parity regime) go through the float32 panel
+    product and come back float64; without an adjoint panel ``rmatmat``
+    uses the plain transposed product on the CPU (K4's path in JAX)."""
+    csr = _random_csr(m=700, n=300)
+    jop = jspmv.PallasBSROperator.from_csr(csr, dtype=jnp.int8, n_buckets=2,
+                                           with_adjoint=False, interpret=True,
+                                           row_group=1)
+    op = _convert(jop)
+    rng = np.random.default_rng(6)
+    X, U = rng.standard_normal((300, 3)), rng.standard_normal((700, 3))
+    got = op.matmat(torch.from_numpy(X))
+    assert got.dtype == torch.float64
+    _close(got.numpy(), jop.matmat(jnp.asarray(X)))
+    _close(op.rmatmat(torch.from_numpy(U)).numpy(),
+           jop.rmatmat(jnp.asarray(U)))
+
+
+def test_k2_layout_walk_matches_plain():
+    """Emulate the K2 kernel's indexing in numpy (a position at a time, X
+    read through its strides with columns >= n masked, tiles of 8 columns
+    with a ragged last tile, rows of pos_row, rows >= m dropped) and check
+    it against the plain version, for a row-major and a transposed X."""
+    csr_q, s = tspmv._row_quantize_csr(_random_csr(m=1001, n=650))
+    bell = tsparse.bucketed_block_ell_from_csr(
+        csr_q, block=(32, 128), dtype=np.int8, n_buckets=4, row_group=1,
+        device="cpu")
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    R = 11
+    X = np.random.default_rng(7).standard_normal((n, R)).astype(np.float32)
+    want = tspmv.bucket_matmat_plain(bell, torch.from_numpy(X),
+                                     torch.from_numpy(s)).numpy()
+    blocks = bell.blocks_flat.numpy().astype(np.float32)
+    bcols = bell.bcols_flat.numpy()
+    for xs in (X, np.ascontiguousarray(X.T).T):
+        ldn, ldr = (st // 4 for st in xs.strides)
+        buf = (xs.base if xs.base is not None else xs).reshape(-1)
+        Y = np.full((m, R), np.nan, np.float32)
+        for r0 in range(0, R, 8):
+            rc = min(8, R - r0)
+            for p in range(bell.pos_row.shape[0]):
+                row = int(bell.pos_row[p])
+                if row < 0:
+                    continue
+                off, cnt = int(bell.pos_off[p]), int(bell.pos_cnt[p])
+                cols = bcols[off:off + cnt, None] * bc + np.arange(bc)
+                idx = (np.minimum(cols, n - 1)[..., None] * ldn
+                       + (r0 + np.arange(rc)) * ldr)
+                xv = np.where((cols < n)[..., None], buf[idx], 0.0)
+                acc = np.einsum("jic,jcr->ir", blocks[off:off + cnt], xv)
+                rows = row * br + np.arange(br)
+                keep = rows < m
+                Y[rows[keep], r0:r0 + rc] = \
+                    s[rows[keep], None] * acc[keep]
+        assert np.isfinite(Y).all()        # every entry written once
+        _close(Y, want)
 
 
 def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     from hybrid_gmres_tpu_torch.ops import _build
+    from hybrid_gmres_tpu_torch.solvers.batched import ba_gmres_batched
     from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
 
     def boom(*a, **k):
@@ -217,13 +340,18 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     monkeypatch.setattr(_build, "load_library", boom)
     csr = _random_csr(m=400, n=300)
     A = tspmv.BlockELLOperator.from_csr(csr, dtype="int8",
-                                        with_adjoint=False)
+                                        with_adjoint=False, device="cpu")
     B = tspmv.BlockELLOperator.from_csr(csr.T.tocsr(), dtype="int8",
-                                        with_adjoint=False)
-    before = tspmv.bucket_matvec.launches
-    b = torch.from_numpy(np.random.default_rng(4).standard_normal(400))
+                                        with_adjoint=False, device="cpu")
+    before = tspmv.bucket_matvec.launches, tspmv.bucket_matmat.launches
+    rng = np.random.default_rng(4)
+    b = torch.from_numpy(rng.standard_normal(400))
     r = ba_gmres(A, B, b.float(), tol=0.0, maxit=5, lam=1e-2,
                  residual="fused")
     assert torch.isfinite(r.res_hist).all()
-    assert tspmv.bucket_matvec.launches == before
+    rb = ba_gmres_batched(A, B, torch.from_numpy(
+        rng.standard_normal((400, 3))).float(), tol=0.0, maxit=5, lam=1e-2)
+    assert torch.isfinite(rb.res_hist).all()
+    assert (tspmv.bucket_matvec.launches,
+            tspmv.bucket_matmat.launches) == before
     assert not _build._LIBS
