@@ -3,31 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` and
-drives its two paths on the Morton-ordered int8 block-ELL fan-beam CT
-operators at n=64 (180x180 rays) and n=128 (360x360 rays):
+Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (three
+libraries, four kernels) and drives its three path families on the
+Morton-ordered int8 block-ELL fan-beam CT operators at n=64 (180x180 rays)
+and n=128 (360x360 rays):
 
   * the single solve — hybrid BA-GMRES (maxit=100, lam=1e-2, fused
     residual), the scenario of ``bench.py``, through kernel K1 (SpMV);
   * the serving batch — ``ba_gmres_batched`` over R sinograms with per-RHS
     noise seeds, the scenario of ``scripts/batched_bench.py``, through
     kernel K2 (SpMM): in-loop and deferred histories, R=16 in two scans,
-    and a warm start from the previous frame.
+    and a warm start from the previous frame;
+  * the GKB family on forward panels only — ``lsqr``, ``hybrid_lsqr``,
+    ``lsmr``, ``hybrid_lsmr`` through K1 and the transposed kernel K3, and
+    the serving twins ``lsqr_batched``, ``hybrid_lsqr_batched``,
+    ``lsmr_batched`` (the scenario of ``scripts/gkb_batched_bench.py``)
+    through K2 and K4; ``lsqr`` also with ``with_adjoint=True`` (K1 on a
+    second panel instead of K3).
 
 Phases:
 
   1. device: requires CUDA (exits 1 otherwise, no CPU fallback), prints the
      card's name and power limit, the CUDA and nvcc versions; TF32 off;
-  2. build: compiles both kernel libraries in parallel, seconds each;
-  3. kernel vs plain: K1 and K2 against their plain PyTorch versions on the
-     same CUDA tensors (the CT int8 panels of A and B, K2 at R=8 and R=3;
-     small random f32/bf16/int8 panels, forward and adjoint, K2 at R in
-     {1, 5, 8, 12}), K2's column j against K1 on column j, and CUDA-event
-     times of each kernel, its plain version, R launches of K1, and the
-     library call (``torch.sparse`` CSR of the same matrix, used nowhere in
-     the port), beside the kernel's bound computed from the run's panels;
+  2. build: compiles the kernel libraries in parallel, seconds each;
+  3. kernel vs plain: K1-K4 against their plain PyTorch versions on the
+     same CUDA tensors (the CT int8 panels of A and B; small random
+     f32/bf16/int8 panels, K2/K4 at R in {1, 3, 5, 8, 12} in both layouts),
+     K2's column j against K1 and K4's against K3 on column j, K3 twice on
+     the same input, K3 against K1 on an adjoint panel, <A x, u> against
+     <x, A^T u>, and CUDA-event times of each kernel, its plain version, R
+     launches of the single-RHS kernel, the adjoint-panel alternative and
+     the library call (``torch.sparse`` CSR of the same matrix, used
+     nowhere in the port), beside the kernel's bound computed from the
+     run's panels;
   4. small reference: CT n=16 solves on the card against the same solves on
-     the CPU (single-RHS; batched R=4 in-loop and deferred);
+     the CPU (BA-GMRES single and batched; the seven GKB solvers, without
+     and with ``reorth=True``);
   5. single solve at n=64: the K1 launch count reset before and read after
      (must be 201: r0 = B b, then A and B per iteration; K2 must stay 0),
      the quality gate on the min-over-k error, the error history against a
@@ -37,8 +48,15 @@ Phases:
      port's single-RHS solve of that column and against the float64 host
      reference, deferred against in-loop, warm against cold, it/s; and the
      GCV-selected lambda modes (``"gcv-final"``, ``"gcv"``), timed;
-  7. the same two paths at n=128 (serving: R=8 deferred; the float64
-     reference for column 0).
+  7. the GKB path at n=64: each single-RHS solver with its launch counts
+     checked against the counts worked out from the code, its error history
+     against the float64 host reference of the same solver, it/s;
+     ``hybrid_lsmr`` also with ``lam="gcv"``, timed; the batched solvers
+     with their counts, every column against the port's single-RHS solve,
+     an (R,) lambda against the scalar, and a resume 40 -> 100 against the
+     uninterrupted run, bit for bit;
+  8. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
+     ``lsqr_batched``; the float64 reference for column 0).
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}``, the card's name and power limit, and the
@@ -96,6 +114,26 @@ KERNEL_RTOL = 1e-5
 # The library call multiplies by float32(s * q), the kernel by s * (sum q x):
 # one more rounding per entry.
 LIBRARY_RTOL = 1e-4
+# K3 against K1 on an adjoint panel of the same Q, and <A x, u> against
+# <x, A^T u>: the same products summed in another order, float32.
+ADJOINT_RTOL = 1e-5
+# The GKB solvers (tol=0, 100 steps, no reorthogonalization) against the
+# same solver in float64 on the host.  The short recurrences lose
+# orthogonality in float32 where the semi-convergence minimum is reached
+# (k = 7-9): measured on the card, the histories agree to <= 8e-6 over the
+# first 6 steps at both sizes, to 2e-5..3e-4 at step 7 and only to 1e-2..1e-1
+# after it, and the minima to 2e-5 (LSQR) .. 1e-3 (LSMR, whose minimum falls
+# one step later than in float64).  So the history is held over the first
+# GKB_REF_K steps to GKB_REF_RTOL and the minimum to GKB_MIN_RTOL; the gate
+# on each solver's min-over-k error is its float64 reference's minimum times
+# GKB_BAND, since bench.py has no GKB anchor.  The same bands hold a batched
+# column to the single-RHS solve of that column (measured <= 1.2e-5 over 6
+# steps, minima within 5e-4: the norms reduce in another order).
+GKB_REF_K, GKB_REF_RTOL, GKB_MIN_RTOL, GKB_BAND = 6, 1e-4, 5e-3, 1.01
+# lsqr with with_adjoint=True against the forward-panels-only run: the same
+# recurrence with A^T u summed in another order (K1 on the adjoint panel
+# against K3); measured <= 1e-7 over the first GKB_REF_K steps.
+WITH_ADJOINT_RTOL = 1e-4
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
 # cores (the kernels multiply float32 x by converted panel values).
 PEAK_BYTES_PER_S = 3.35e12
@@ -153,6 +191,31 @@ def per_call_ms(fn, reps):
     return out
 
 
+class HostSyncs:
+    """Counts the host synchronizations of the block it wraps: PyTorch's
+    sync debug mode warns on each synchronizing CUDA call."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        torch.cuda.set_sync_debug_mode("warn")
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        self.messages = [str(w.message) for w in self._caught
+                         if "synchroniz" in str(w.message).lower()]
+        self.count = len(self.messages)
+
+
 def phase_device():
     import torch
 
@@ -179,7 +242,7 @@ def phase_device():
 
 
 def phase_build():
-    """Compile both kernel libraries (one nvcc each, started together, with
+    """Compile the kernel libraries (one nvcc each, started together, with
     the register and spill report of ptxas) and load them."""
     from hybrid_gmres_tpu_torch.ops._build import (LIBRARIES, NVCC_FLAGS,
                                                    build_all, load_library)
@@ -220,6 +283,23 @@ def panel_work(bell, R):
     return nbytes, 2 * live * br * bc * R
 
 
+def transposed_work(bell, R):
+    """Bytes and flops of the transposed product on this panel: the live
+    blocks, the block-column index (8 bytes a block, the segment and column
+    offsets), U and the row scale read once, Y written once.  The segment
+    partials are the kernel's own scratch and are not counted."""
+    import torch
+
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    live = int(bell.col_blk.shape[0])
+    item = torch.empty((), dtype=bell.dtype).element_size()
+    nbytes = (live * br * bc * item + live * 8
+              + 4 * (bell.seg_off.numel() + bell.col_seg.numel())
+              + 4 * R * (n + m) + 4 * m)
+    return nbytes, 2 * live * br * bc * R
+
+
 def bound(work):
     """(bound_ms, bound_by) of ``[(bytes, flops), ...]`` done back to back:
     the larger of bytes over the card's memory rate and flops over its
@@ -245,12 +325,15 @@ def quantized_csr(csr):
     return (sp.diags(s.astype(np.float64)) @ csr_q).tocsr()
 
 
-def library_csr(csr):
-    """The library's format of the same matrix: a float32 ``torch.sparse``
-    CSR tensor on the card (cuSPARSE), 32-bit indices."""
+def library_csr(csr, transpose=False):
+    """The library's format of the same matrix (or of its transpose): a
+    float32 ``torch.sparse`` CSR tensor on the card (cuSPARSE), 32-bit
+    indices."""
     import torch
 
     q = quantized_csr(csr.astype(np.float64))
+    if transpose:
+        q = q.T.tocsr()
     return torch.sparse_csr_tensor(
         torch.as_tensor(q.indptr.astype(np.int32), device="cuda"),
         torch.as_tensor(q.indices.astype(np.int32), device="cuda"),
@@ -259,9 +342,10 @@ def library_csr(csr):
 
 
 def phase_ct_kernels(P):
-    """K1 and K2 against their plain versions on the CT int8 panels of A
-    and B, K2's columns against K1, all timed beside the library call and
-    the bound.  Returns the per-panel records of (K1, K2)."""
+    """K1-K4 against their plain versions on the CT int8 panels of A and B,
+    K2's columns against K1 and K4's against K3, all timed beside the
+    library call, the adjoint-panel alternative and the bound.  Returns the
+    per-panel records of (K1, K2, K3, K4)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
@@ -269,8 +353,9 @@ def phase_ct_kernels(P):
         bucket_matvec_plain)
 
     rng = np.random.default_rng(1)
-    recs1, recs2 = [], []
-    for tag, op, csr in (("A", P.A_op, P.A_csr), ("B", P.B_op, P.B_csr)):
+    recs1, recs2, recs3, recs4 = [], [], [], []
+    for tag, op, adj_op, csr in (("A", P.A_op, P.A_adj, P.A_csr),
+                                 ("B", P.B_op, P.B_adj, P.B_csr)):
         bell, scale = op.fwd, op.fwd_scale
         panel = f"n={P.n} {tag} int8 {tuple(bell.block_shape)}"
         common = dict(panel=panel, shape=list(op.shape),
@@ -347,19 +432,142 @@ def phase_ct_kernels(P):
             max_rel_err=e2, max_rel_err_R3=e3, column_vs_k1_max_diff=col_diff,
             column_equals_k1=col_diff == 0.0, library_max_rel_diff=l2))
         say("kernel_vs_plain", kernel="K2", **recs2[-1])
-    return recs1, recs2
+        r3, r4 = transposed_kernels(op, adj_op, csr, common, rng)
+        recs3.append(r3)
+        recs4.append(r4)
+    return recs1, recs2, recs3, recs4
+
+
+def transposed_kernels(op, adj_op, csr, common, rng):
+    """K3 and K4 on one CT panel: against their plain versions, K4's
+    columns against K3 (exactly), K3 twice on the same input (the same
+    bits), K3 against K1 on the adjoint panel of the same Q and the
+    transpose identity <A x, u> = <x, A^T u> through K1 and K3 (float32
+    rounding), the library call on the transposed CSR; times of each, of
+    the adjoint-panel alternative (``rmatvec``/``rmatmat`` of the
+    ``with_adjoint=True`` operator: the pre-scale and K1/K2) and of eight K3
+    launches.  Returns the records of (K3, K4)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        bucket_rmatmat, bucket_rmatmat_plain, bucket_rmatvec,
+        bucket_rmatvec_plain)
+
+    bell, scale, panel = op.fwd, op.fwd_scale, common["panel"]
+    m, n = op.shape
+    lib = library_csr(csr, transpose=True)
+    U = torch.as_tensor(rng.standard_normal((m, 8)), dtype=torch.float32,
+                        device="cuda")
+    Ut = U.T.contiguous().T           # the batched solvers' layout
+    u = U[:, 0].contiguous()
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device="cuda")
+    index_mb = 4 * (2 * bell.col_blk.numel() + bell.seg_off.numel()
+                    + bell.col_seg.numel()) / 1e6
+    common = dict(common, index_mb=index_mb, seg_len=bell.seg_len,
+                  segments=bell.seg_off.numel() - 1)
+
+    # K3
+    z_k, z_p = bucket_rmatvec(bell, u, scale), \
+        bucket_rmatvec_plain(bell, u, scale)
+    again = bucket_rmatvec(bell, u, scale)
+    torch.cuda.synchronize()
+    check(z_k.shape == z_p.shape == (n,) and bool(torch.isfinite(z_k).all()),
+          f"{panel}: K3 output not finite or misshaped")
+    e3 = rel_err(z_k, z_p)
+    check(e3 <= KERNEL_RTOL, f"{panel}: K3 vs plain {e3:.3e}")
+    repeat = float((z_k - again).abs().max())
+    check(repeat == 0.0, f"{panel}: K3 differs between two runs by "
+          f"{repeat:.3e}")
+    a3 = rel_err(adj_op.rmatvec(u), z_k)
+    check(a3 <= ADJOINT_RTOL, f"{panel}: K3 vs K1 on the adjoint panel "
+          f"{a3:.3e}")
+    Ax = op.matvec(x)
+    lhs, rhs = float(torch.dot(Ax, u)), float(torch.dot(x, z_k))
+    dot_gap = abs(lhs - rhs) / float(torch.linalg.vector_norm(Ax)
+                                     * torch.linalg.vector_norm(u))
+    check(dot_gap <= ADJOINT_RTOL, f"{panel}: <A x, u> = {lhs!r} but "
+          f"<x, A^T u> = {rhs!r}")
+    l3 = rel_err(lib @ u, z_k)
+    check(l3 <= LIBRARY_RTOL, f"{panel}: K3 vs library {l3:.3e}")
+    run_k = partial(bucket_rmatvec, bell, u, scale)
+    run_p = partial(bucket_rmatvec_plain, bell, u, scale)
+    p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), \
+        time_ms(run_p, 10)
+    w3 = transposed_work(bell, 1)
+    b_ms, b_by = bound([w3])
+    rec3 = dict(
+        common, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        library_ms=time_ms(lambda: lib @ u),
+        adjoint_panel_ms=time_ms(lambda: adj_op.rmatvec(u)),
+        adjoint_panel_mb=adj_op.adj.nbytes / 1e6,
+        bound_ms=b_ms, bound_by=b_by, work=w3,
+        max_abs_err=float((z_k - z_p).abs().max()), max_rel_err=e3,
+        repeat_max_diff=repeat, vs_adjoint_panel_k1=a3,
+        transpose_identity_gap=dot_gap, library_max_rel_diff=l3)
+    say("kernel_vs_plain", kernel="K3", **rec3)
+
+    # K4: R=8 in both layouts, a ragged tile R=3, columns against K3
+    Z_p = bucket_rmatmat_plain(bell, U, scale)
+    Z_k, Z_t = bucket_rmatmat(bell, U, scale), bucket_rmatmat(bell, Ut, scale)
+    torch.cuda.synchronize()
+    check(Z_k.shape == Z_p.shape == Z_t.shape == (n, 8) and
+          bool(torch.isfinite(Z_k).all()),
+          f"{panel}: K4 output not finite or misshaped")
+    check(Z_t.T.is_contiguous(), f"{panel}: K4 did not keep the layout")
+    e4 = max(rel_err(Z_k, Z_p), rel_err(Z_t, Z_p))
+    e4r = rel_err(bucket_rmatmat(bell, U[:, :3].contiguous(), scale),
+                  Z_p[:, :3])
+    check(max(e4, e4r) <= KERNEL_RTOL,
+          f"{panel}: K4 vs plain {e4:.3e} (R=8), {e4r:.3e} (R=3)")
+    col = max(float((Z[:, j] - bucket_rmatvec(
+        bell, U[:, j].contiguous(), scale)).abs().max())
+        for j in range(8) for Z in (Z_k, Z_t))
+    check(col == 0.0, f"{panel}: K4 column differs from K3 by {col:.3e}")
+    a4 = rel_err(adj_op.rmatmat(Ut), Z_k)
+    check(a4 <= ADJOINT_RTOL, f"{panel}: K4 vs K2 on the adjoint panel "
+          f"{a4:.3e}")
+    l4 = rel_err(lib @ U, Z_k)
+    check(l4 <= LIBRARY_RTOL, f"{panel}: K4 vs library {l4:.3e}")
+    run_k = partial(bucket_rmatmat, bell, Ut, scale)
+    run_p = partial(bucket_rmatmat_plain, bell, U, scale)
+
+    def run_8k3():
+        for j in range(8):
+            bucket_rmatvec(bell, Ut[:, j], scale)
+
+    p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), \
+        time_ms(run_p, 10)
+    w4 = transposed_work(bell, 8)
+    b_ms, b_by = bound([w4])
+    rec4 = dict(
+        common, R=8, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+        ms_row_major=time_ms(partial(bucket_rmatmat, bell, U, scale)),
+        k3_x8_ms=time_ms(run_8k3, 10),
+        library_ms=time_ms(lambda: lib @ U),
+        adjoint_panel_ms=time_ms(lambda: adj_op.rmatmat(Ut)),
+        bound_ms=b_ms, bound_by=b_by, work=w4,
+        max_abs_err=float(max((Z_k - Z_p).abs().max(),
+                              (Z_t - Z_p).abs().max())),
+        max_rel_err=e4, max_rel_err_R3=e4r, column_vs_k3_max_diff=col,
+        vs_adjoint_panel_k2=a4, library_max_rel_diff=l4)
+    say("kernel_vs_plain", kernel="K4", **rec4)
+    return rec3, rec4
 
 
 def phase_small_kernels(device="cuda"):
-    """K1 and K2 vs plain, forward and adjoint panels, on small random
-    panels in every storage type, with (8,128) and (32,128) blocks; K2 at
-    R in {1, 5, 8, 12} in both layouts (12 = a full tile and a ragged one)."""
+    """K1-K4 vs plain on small random panels in every storage type, with
+    (8,128) and (32,128) blocks: K1/K2 on forward and adjoint panels, K2 at
+    R in {1, 5, 8, 12} in both layouts (12 = a full tile and a ragged one);
+    K3/K4 on the forward panel, K4 at R in {1, 3, 5, 8, 12} in both layouts,
+    its columns against K3 exactly, K3 twice for the same bits."""
     import scipy.sparse as sp
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
         BlockELLOperator, bucket_matmat, bucket_matmat_plain, bucket_matvec,
-        bucket_matvec_plain)
+        bucket_matvec_plain, bucket_rmatmat, bucket_rmatmat_plain,
+        bucket_rmatvec, bucket_rmatvec_plain)
 
     rng = np.random.default_rng(1)
     csr = sp.random(3000, 2000, density=0.01, format="csr",
@@ -394,9 +602,30 @@ def phase_small_kernels(device="cuda"):
                     col = max(col, max(float((got[:, j] - bucket_matvec(
                         bell, VR[:, j].contiguous(), scale)).abs().max())
                         for j in range(R)))
+            bell, scale = op.fwd, op.fwd_scale
+            u = U[:, 0].contiguous()
+            z = bucket_rmatvec(bell, u, scale)
+            worst3 = rel_err(z, bucket_rmatvec_plain(bell, u, scale))
+            rep = float((z - bucket_rmatvec(bell, u, scale)).abs().max())
+            worst4 = col4 = 0.0
+            for R in (1, 3, 5, 8, 12):
+                UR = U[:, :R].contiguous()
+                want = bucket_rmatmat_plain(bell, UR, scale)
+                for layout in (UR, UR.T.contiguous().T):
+                    got = bucket_rmatmat(bell, layout, scale)
+                    check(got.shape == want.shape,
+                          f"{label}: K4 output misshaped at R={R}")
+                    worst4 = max(worst4, rel_err(got, want))
+                    col4 = max(col4, max(float((got[:, j] - bucket_rmatvec(
+                        bell, UR[:, j].contiguous(), scale)).abs().max())
+                        for j in range(R)))
             torch.cuda.synchronize()
             check(worst1 <= KERNEL_RTOL, f"{label}: K1 vs plain {worst1:.3e}")
             check(worst2 <= KERNEL_RTOL, f"{label}: K2 vs plain {worst2:.3e}")
+            check(worst3 <= KERNEL_RTOL, f"{label}: K3 vs plain {worst3:.3e}")
+            check(worst4 <= KERNEL_RTOL, f"{label}: K4 vs plain {worst4:.3e}")
+            check(rep == 0.0 and col4 == 0.0, f"{label}: K3 twice differs by "
+                  f"{rep:.3e}, K4's columns from K3 by {col4:.3e}")
             if dt == torch.bfloat16:
                 # bf16 keeps 8 significant bits: each stored entry is off
                 # by <= 2^-9 of itself, so |y_bf16 - y_f32| <= 2^-9 sum|a x|
@@ -409,7 +638,9 @@ def phase_small_kernels(device="cuda"):
                             <= 2.0 ** -8 * absax + 1e-30).all()),
                       f"{label}: bf16 panel outside its rounding bound")
             say("kernel_vs_plain_small", panel=label, k1_max_rel_err=worst1,
-                k2_max_rel_err=worst2, k2_column_vs_k1_max_diff=col)
+                k2_max_rel_err=worst2, k2_column_vs_k1_max_diff=col,
+                k3_max_rel_err=worst3, k4_max_rel_err=worst4,
+                k4_column_vs_k3_max_diff=col4, k3_repeat_max_diff=rep)
 
 
 def noisy_sinograms(P, seeds):
@@ -425,9 +656,11 @@ def noisy_sinograms(P, seeds):
     return np.stack(cols, axis=1)
 
 
-def make_problem(n, device="cuda"):
+def make_problem(n, device="cuda", adjoint=False):
     """The bench scenario: CT n with 180*n/64 angles and detectors, int8
-    Morton block-ELL operators, 25% noise from seed 0."""
+    Morton block-ELL operators (forward panels only, the default of
+    ``ct_gpu_operators``), 25% noise from seed 0.  ``adjoint``: also the
+    ``with_adjoint=True`` operators, as ``A_adj``/``B_adj``."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.ordering import reorder_pair
@@ -444,7 +677,12 @@ def make_problem(n, device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     t_pack = time.perf_counter() - t0
-    P = SimpleNamespace(n=n, prob=prob, A_op=A_op, B_op=B_op,
+    A_adj = B_adj = None
+    if adjoint:
+        A_adj, B_adj = ct_gpu_operators(prob, dtype="int8", device=device,
+                                        with_adjoint=True)[:2]
+    P = SimpleNamespace(n=n, prob=prob, A_op=A_op, B_op=B_op, A_adj=A_adj,
+                        B_adj=B_adj,
                         x_true=x_true.to(torch.float32), ray_perm=ray_perm,
                         pix_perm=pix_perm, device=device)
     # the float32 matrices the panels were packed from, in panel order
@@ -476,6 +714,30 @@ def solve_batched(P, b, defer, x0=None, maxit=MAXIT, lam=LAM):
                             defer_histories=defer)
 
 
+def scipy_operator(csr):
+    """The float64 host operator diag(s) Q of an int8 panel of ``csr``:
+    scipy CSR products, independent of the kernels."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
+
+    class ScipyOperator(LinearOperator):
+        dtype, device = torch.float64, torch.device("cpu")
+
+        def __init__(self, csr):
+            self.csr = quantized_csr(csr)
+            self.csr_t = self.csr.T.tocsr()
+            self.shape = self.csr.shape
+
+        def matvec(self, v):
+            return torch.from_numpy(self.csr @ v.numpy())
+
+        def rmatvec(self, u):
+            return torch.from_numpy(self.csr_t @ u.numpy())
+
+    return ScipyOperator(csr.astype(np.float64))
+
+
 def host_reference(prob, ray_perm, pix_perm, b):
     """The same solve in float64 on the host, independent of the kernels:
     scipy CSR products with the exactly quantized operators diag(s) Q (the
@@ -483,53 +745,93 @@ def host_reference(prob, ray_perm, pix_perm, b):
     solver.  Returns the error history."""
     import torch
 
-    from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
     from hybrid_gmres_tpu_torch.ops.ordering import reorder_pair
     from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
 
-    class ScipyOperator(LinearOperator):
-        def __init__(self, csr):
-            self.csr = quantized_csr(csr)
-            self.shape, self.dtype = self.csr.shape, torch.float64
-
-        def matvec(self, v):
-            return torch.from_numpy(self.csr @ v.numpy())
-
     A, B = reorder_pair(prob.A_csr.astype(np.float32),
                         prob.B_csr.astype(np.float32), ray_perm, pix_perm)
-    r = ba_gmres(ScipyOperator(A.astype(np.float64)),
-                 ScipyOperator(B.astype(np.float64)),
+    r = ba_gmres(scipy_operator(A), scipy_operator(B),
                  torch.from_numpy(b.astype(np.float64)),
                  torch.from_numpy(prob.x_true[pix_perm]), tol=0.0,
                  maxit=MAXIT, lam=LAM, residual="fused")
     return r.err_hist.numpy()
 
 
-def reset_counts():
-    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (bucket_matmat,
-                                                      bucket_matvec)
+GKB_SINGLE = ("lsqr", "hybrid_lsqr", "lsmr", "hybrid_lsmr")
+GKB_BATCHED = ("lsqr_batched", "hybrid_lsqr_batched", "lsmr_batched")
+REORTH = " reorth=True"
 
-    bucket_matvec.launches = bucket_matmat.launches = 0
+
+def gkb_solver(name):
+    """(function, its fixed keywords) of a GKB solver by name."""
+    import importlib
+
+    module = {"lsqr": "lsqr", "hybrid_lsqr": "lsqr", "lsmr": "lsmr",
+              "hybrid_lsmr": "lsmr"}.get(name, "gkb_batched")
+    fn = getattr(importlib.import_module(
+        f"hybrid_gmres_tpu_torch.solvers.{module}"), name)
+    return fn, ({"lam": LAM} if "hybrid" in name else {})
+
+
+def gkb_launches(name, maxit):
+    """(forward, transposed) kernel launches of one cold GKB solve, worked
+    out from the code: every solver applies A^T once at the start, then A
+    and A^T once per step.  LSQR adds one forward product for the final
+    true-residual patch; hybrid LSQR and hybrid LSMR one per step for the
+    true residual; LSMR a forward and a transposed one per step (true
+    residual and ||A^T r||).  The batched twins make the same calls through
+    K2/K4."""
+    base = name.replace("_batched", "")
+    return {"lsqr": (maxit + 1, maxit + 1),
+            "hybrid_lsqr": (2 * maxit, maxit + 1),
+            "lsmr": (2 * maxit, 2 * maxit + 1),
+            "hybrid_lsmr": (2 * maxit, maxit + 1)}[base]
+
+
+def host_reference_gkb(P, name, b, maxit=MAXIT):
+    """Solver ``name`` of the port in float64 on the host with the scipy
+    operator of A.  Returns the error history."""
+    import torch
+
+    if getattr(P, "host_A", None) is None:
+        P.host_A = scipy_operator(P.A_csr)
+    fn, kw = gkb_solver(name)
+    r = fn(P.host_A, torch.from_numpy(b.astype(np.float64)),
+           torch.from_numpy(P.prob.x_true[P.pix_perm]), tol=0.0, maxit=maxit,
+           **kw)
+    return r.err_hist.numpy()
+
+
+def kernel_wrappers():
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        bucket_matmat, bucket_matvec, bucket_rmatmat, bucket_rmatvec)
+
+    return bucket_matvec, bucket_matmat, bucket_rmatvec, bucket_rmatmat
+
+
+def reset_counts():
+    for wrapper in kernel_wrappers():
+        wrapper.launches = 0
 
 
 def counts():
-    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (bucket_matmat,
-                                                      bucket_matvec)
-
-    return bucket_matvec.launches, bucket_matmat.launches
+    """Launches of (K1, K2, K3, K4) since the last reset."""
+    return tuple(wrapper.launches for wrapper in kernel_wrappers())
 
 
-def held_to(err, err_ref, label, what):
+def held_to(err, err_ref, label, what, bands=None):
     """The first REF_K entries of an error history within REF_RTOL of a
-    reference and its minimum within REF_MIN_RTOL; returns both gaps."""
-    hist = float(np.max(np.abs(err[:REF_K] - err_ref[:REF_K])
-                        / err_ref[:REF_K]))
+    reference and its minimum within REF_MIN_RTOL (or the ``bands`` given:
+    steps, history tolerance, minimum tolerance); returns both gaps."""
+    ref_k, rtol, min_rtol = bands or (REF_K, REF_RTOL, REF_MIN_RTOL)
+    hist = float(np.max(np.abs(err[:ref_k] - err_ref[:ref_k])
+                        / err_ref[:ref_k]))
     at_min = abs(float(err.min()) - float(err_ref.min())) / float(
         err_ref.min())
-    check(hist <= REF_RTOL, f"{label}: error history vs {what} {hist:.2e} > "
-          f"{REF_RTOL:.0e} (first {REF_K} steps)")
-    check(at_min <= REF_MIN_RTOL, f"{label}: min-over-k error vs {what} "
-          f"{at_min:.2e} > {REF_MIN_RTOL:.0e}")
+    check(hist <= rtol, f"{label}: error history vs {what} {hist:.2e} > "
+          f"{rtol:.0e} (first {ref_k} steps)")
+    check(at_min <= min_rtol, f"{label}: min-over-k error vs {what} "
+          f"{at_min:.2e} > {min_rtol:.0e}")
     return hist, at_min
 
 
@@ -542,18 +844,19 @@ def phase_main_path(P):
     n = P.n
     t0 = time.perf_counter()
     reset_counts()
-    r = solve(P)
+    with HostSyncs() as syncs:
+        r = solve(P)
     torch.cuda.synchronize()
-    k1, k2 = counts()
+    k1, k2, k3, k4 = counts()
     first_s = time.perf_counter() - t0
     niters = int(r.niters)
     err = r.err_hist.cpu().numpy()
     res = r.res_hist.cpu().numpy()
     ms = per_call_ms(lambda: solve(P), reps=5)
     q1, med, q3 = (float(v) for v in np.percentile(ms, [25, 50, 75]))
-    check(k1 == 2 * MAXIT + 1 and k2 == 0,
-          f"n={n}: {k1} K1 and {k2} K2 launches in the single solve, "
-          f"expected {2 * MAXIT + 1} and 0")
+    check((k1, k2, k3, k4) == (2 * MAXIT + 1, 0, 0, 0),
+          f"n={n}: (K1, K2, K3, K4) launches {(k1, k2, k3, k4)} in the "
+          f"single solve, expected {(2 * MAXIT + 1, 0, 0, 0)}")
     check(niters == MAXIT, f"n={n}: niters {niters} != {MAXIT}")
     check(bool(np.isfinite(err).all() and np.isfinite(res).all()),
           f"n={n}: non-finite history entries")
@@ -568,7 +871,8 @@ def phase_main_path(P):
     ref_diff, min_diff = held_to(err, err_ref, f"n={n}",
                                  "float64 host reference")
     say("main_path", **P.info, maxit=MAXIT, lam=LAM, k1_launches=k1,
-        k2_launches=k2, first_solve_s=first_s, timed_solves=len(ms),
+        k2_launches=k2, host_syncs=syncs.count, first_solve_s=first_s,
+        timed_solves=len(ms),
         solve_ms_median=med, solve_ms_q1=q1, solve_ms_q3=q3,
         solve_ms_min=min(ms), solve_ms_max=max(ms),
         iters_per_s=MAXIT / (med / 1e3), min_err=min_err,
@@ -591,9 +895,9 @@ def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     reset_counts()
     r = solve_batched(P, b, defer, x0=x0, **kw)
     torch.cuda.synchronize()
-    k1, k2 = counts()
-    check(k2 == expect_k2 and k1 == 0, f"{label}: {k2} K2 and {k1} K1 "
-          f"launches, expected {expect_k2} and 0")
+    k1, k2, k3, k4 = counts()
+    check((k1, k2, k3, k4) == (0, expect_k2, 0, 0), f"{label}: (K1, K2, K3, "
+          f"K4) launches {(k1, k2, k3, k4)}, expected {(0, expect_k2, 0, 0)}")
     check(r.niters.tolist() == [MAXIT] * R, f"{label}: niters "
           f"{r.niters.tolist()}")
     shapes = dict(x=(nx, R), err_hist=(MAXIT, R), res_hist=(MAXIT, R),
@@ -754,13 +1058,220 @@ def phase_serving(P, single_its, ref0, full):
     return k2_first
 
 
+def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
+    """One GKB solve with the launch counts reset before and read after,
+    and the checks every GKB run gets: no host synchronization while the
+    solve is queued (PyTorch's sync debug mode warns on each; at most
+    ``max_syncs`` outside the loop, None to only count them), niters,
+    shapes, finite results.  Returns (result, (K1, K2, K3, K4) launches)."""
+    import torch
+
+    fn, kw = gkb_solver(name)
+    reset_counts()
+    with HostSyncs() as syncs:
+        r = fn(A_op, b, x_true, tol=0.0, maxit=maxit, **{**kw, **extra})
+    # Outside the loop a solve may touch the host a few times: the
+    # fingerprint's host values are copied to the card, a resume reads the
+    # stored fingerprint, a lam tensor is read once.  A synchronization
+    # inside the loop would show up once per step (maxit >= 40 here).
+    check(max_syncs is None or syncs.count <= max_syncs,
+          f"{label}: {syncs.count} host synchronizations while queueing the "
+          f"solve: {syncs.messages[:3]}")
+    torch.cuda.synchronize()
+    launched = counts()
+    tail = tuple(b.shape[1:])
+    k0 = 0 if extra.get("resume_from") is None else \
+        extra["resume_from"].res_hist.shape[0]
+    if k0 == 0 and "x0" not in extra:
+        fwd, tr = gkb_launches(name, maxit)
+        want = (0, fwd, 0, tr) if tail else (fwd, 0, tr, 0)
+        if getattr(A_op, "adj", None) is not None:   # K1/K2 on A^T's panel
+            want = (0, fwd + tr, 0, 0) if tail else (fwd + tr, 0, 0, 0)
+        check(launched == want, f"{label}: (K1, K2, K3, K4) launches "
+              f"{launched}, expected {want}")
+    check(bool((r.niters == maxit).all()), f"{label}: niters "
+          f"{r.niters.tolist()} != {maxit}")
+    check(tuple(r.x.shape) == (A_op.shape[1],) + tail and
+          tuple(r.err_hist.shape) == tuple(r.res_hist.shape) ==
+          (maxit,) + tail, f"{label}: misshaped results")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.err_hist).all()
+               and torch.isfinite(r.res_hist).all()),
+          f"{label}: non-finite results")
+    if "lsmr" in name and "hybrid" not in name:
+        check(bool(torch.isfinite(r.ar_hist).all()),
+              f"{label}: non-finite ||A^T r|| history")
+    gkb_counted.host_syncs = syncs.count
+    return r, launched
+
+
+def gkb_timed(name, A_op, b, x_true, maxit, **extra):
+    fn, kw = gkb_solver(name)
+    ms = per_call_ms(lambda: fn(A_op, b, x_true, tol=0.0, maxit=maxit,
+                                **{**kw, **extra}), reps=5)
+    med = float(np.median(ms))
+    R = b.shape[1] if b.ndim == 2 else 1
+    return dict(solve_ms_median=med, solve_ms_min=min(ms),
+                solve_ms_max=max(ms), iters_per_s=maxit / (med / 1e3),
+                rhs_iters_per_s=R * maxit / (med / 1e3))
+
+
+GKB_BANDS = (GKB_REF_K, GKB_REF_RTOL, GKB_MIN_RTOL)
+
+
+def phase_gkb_path(P, names, gcv=False):
+    """The single-RHS GKB solvers on the forward-panels-only operator: the
+    launch counts against the counts worked out from the code, the error
+    history against the same solver in float64 on the host, the gate
+    (that reference's minimum x GKB_BAND), it/s.  ``lsqr`` also on the
+    ``with_adjoint=True`` operator and, with ``gcv``, ``hybrid_lsmr`` with
+    ``lam="gcv"``.  Returns ``{name: (launches, error history on the card,
+    reference history)}``."""
+    n, out = P.n, {}
+    for name in names:
+        label = f"n={n} {name}"
+        r, launched = gkb_counted(name, P.A_op, P.b, P.x_true, MAXIT, label)
+        host_syncs = gkb_counted.host_syncs
+        err = r.err_hist.cpu().numpy()
+        t0 = time.perf_counter()
+        err_ref = host_reference_gkb(P, name, P.b_host)
+        ref_s = time.perf_counter() - t0
+        gate = float(err_ref.min()) * GKB_BAND
+        check(float(err.min()) <= gate, f"{label}: min-over-k rel err "
+              f"{err.min():.4f} > gate {gate:.4f}")
+        hist, at_min = held_to(err, err_ref, label, "float64 host reference",
+                               GKB_BANDS)
+        rec = dict(n=n, solver=name, maxit=MAXIT,
+                   lam=LAM if "hybrid" in name else None,
+                   launches_k1_k2_k3_k4=launched, host_syncs=host_syncs,
+                   min_err=float(err.min()),
+                   min_err_k=int(err.argmin()) + 1, final_err=float(err[-1]),
+                   final_res=float(r.res_hist[-1]), gate=gate,
+                   f64_ref_min_err=float(err_ref.min()),
+                   f64_ref_min_rel_diff=at_min, f64_ref_hist_rel_diff=hist,
+                   f64_ref_s=ref_s,
+                   **gkb_timed(name, P.A_op, P.b, P.x_true, MAXIT))
+        if name == "lsqr" and P.A_adj is not None:
+            # the with_adjoint=True configuration: K1 on a second panel
+            ra, la = gkb_counted(name, P.A_adj, P.b, P.x_true, MAXIT,
+                                 label + " with_adjoint")
+            gap = float(np.max(np.abs(
+                ra.err_hist.cpu().numpy()[:GKB_REF_K] - err[:GKB_REF_K])
+                / err[:GKB_REF_K]))
+            check(gap <= WITH_ADJOINT_RTOL, f"{label}: with_adjoint=True "
+                  f"differs from forward panels only by {gap:.2e}")
+            rec["with_adjoint"] = dict(
+                launches_k1_k2_k3_k4=la, hist_rel_diff=gap,
+                panel_mb=(P.A_adj.fwd.nbytes + P.A_adj.adj.nbytes) / 1e6,
+                **gkb_timed(name, P.A_adj, P.b, P.x_true, MAXIT))
+        if name == "hybrid_lsmr" and gcv:
+            # the per-iteration GCV lambda (two SVDs of the padded
+            # (maxit+1, maxit) bidiagonal per step; torch.linalg.svd reads
+            # its status on the host, so this mode does synchronize): held
+            # to the fixed-lambda minimum within GCV_BAND, and timed
+            rg, lg = gkb_counted(name, P.A_op, P.b, P.x_true, MAXIT,
+                                 label + " lam=gcv", max_syncs=None,
+                                 lam="gcv")
+            m_g = float(rg.err_hist.min())
+            check(m_g <= GCV_BAND * float(err.min()), f"{label} lam=gcv: "
+                  f"min-over-k rel err {m_g:.4f} above {GCV_BAND} x the "
+                  f"fixed-lambda minimum {err.min():.4f}")
+            fn, _ = gkb_solver(name)
+            rec["lam=gcv"] = dict(
+                launches_k1_k2_k3_k4=lg, host_syncs=gkb_counted.host_syncs,
+                min_err=m_g, min_err_k=int(rg.err_hist.argmin()) + 1,
+                solve_ms=per_call_ms(lambda: fn(
+                    P.A_op, P.b, P.x_true, tol=0.0, maxit=MAXIT, lam="gcv"),
+                    reps=2))
+        say("gkb_path", **rec)
+        out[name] = (launched, err, err_ref)
+    return out
+
+
+def phase_gkb_serving(P, names, ref0, full):
+    """The GKB serving batch (R=8, noise seeds 0..7): launch counts, every
+    column against the port's single-RHS solve of that column (``full``)
+    and column 0 against the float64 host reference ``ref0[name]``, solver
+    and RHS it/s; with ``full`` also hybrid LSQR with an (R,) lambda against
+    the scalar call and a resume 40 -> 100 against the uninterrupted run,
+    both exactly.  Returns ``{name: launches}``."""
+    import torch
+
+    n, R = P.n, 8
+    b_host = noisy_sinograms(P, range(R))
+    b8 = torch.as_tensor(b_host, device=P.device)
+    out = {}
+    for name in names:
+        label = f"n={n} {name} R={R}"
+        single = name.replace("_batched", "")
+        r, launched = gkb_counted(name, P.A_op, b8, P.x_true, MAXIT, label)
+        err = r.err_hist.cpu().numpy()
+        rec = dict(n=n, solver=name, R=R, maxit=MAXIT,
+                   lam=LAM if "hybrid" in name else None,
+                   launches_k1_k2_k3_k4=launched,
+                   host_syncs=gkb_counted.host_syncs,
+                   min_err=err.min(axis=0).tolist(),
+                   min_err_k=(err.argmin(axis=0) + 1).tolist())
+        rec["f64_ref_hist_rel_diff"], rec["f64_ref_min_rel_diff"] = held_to(
+            err[:, 0], ref0[single], f"{label} column 0",
+            "float64 host reference", GKB_BANDS)
+        if full:
+            worst_h = worst_m = 0.0
+            fn1, kw1 = gkb_solver(single)
+            for j in range(R):
+                rj = fn1(P.A_op, b8[:, j].contiguous(), P.x_true, tol=0.0,
+                         maxit=MAXIT, **kw1)
+                h, mn = held_to(err[:, j], rj.err_hist.cpu().numpy(),
+                                f"{label} column {j}",
+                                "its single-RHS solve", GKB_BANDS)
+                worst_h, worst_m = max(worst_h, h), max(worst_m, mn)
+            rec["vs_single_hist"], rec["vs_single_min"] = worst_h, worst_m
+            if name == "hybrid_lsqr_batched":
+                lam_vec = torch.full((R,), LAM, dtype=torch.float32,
+                                     device=P.device)
+                rv, _ = gkb_counted(name, P.A_op, b8, P.x_true, MAXIT,
+                                    label + " (R,) lam", lam=lam_vec)
+                same = all(torch.equal(getattr(rv, f), getattr(r, f))
+                           for f in ("x", "res_hist", "err_hist"))
+                check(same, f"{label}: an (R,) lam of equal entries differs "
+                      "from the scalar call")
+                rec["vector_lam_equals_scalar"] = same
+            # what the repeatable K3/K4 buy: a resumed solve is the
+            # uninterrupted one, bit for bit
+            part, _ = gkb_counted(name, P.A_op, b8, P.x_true, 40,
+                                  label + " maxit=40")
+            resumed, _ = gkb_counted(name, P.A_op, b8, P.x_true, MAXIT,
+                                     label + " resumed",
+                                     resume_from=part.state)
+            fields = ("x", "res_hist", "err_hist") + (
+                ("ar_hist",) if r.ar_hist is not None else ())
+            same = all(torch.equal(getattr(resumed, f), getattr(r, f))
+                       for f in fields)
+            check(same, f"{label}: resume 40 -> {MAXIT} differs from the "
+                  "uninterrupted run")
+            rec["resume_equals_uninterrupted"] = same
+        rec.update(gkb_timed(name, P.A_op, b8, P.x_true, MAXIT))
+        say("gkb_serving_path", **rec)
+        out[name] = launched
+    return out
+
+
 def phase_small_reference():
     """CT n=16, 10 steps: the solves on the card (K1; K2 at R=4, in-loop and
-    deferred) against the same solves on the CPU (plain versions).
-    Tolerance 1e-4: both run in float32 with different summation orders
-    (cuBLAS and the kernels vs the CPU), and ten Krylov steps amplify
-    last-bit differences by at most ~10x here."""
+    deferred; the seven GKB solvers through K1-K4, forward panels only,
+    without and with ``reorth=True``: the stored bases and their gemv/bmm
+    purification) against the same solves on the CPU (plain versions).
+    Tolerance 1e-4 for the GMRES solves: both run in float32 with different
+    summation orders (cuBLAS and the kernels vs the CPU), and ten Krylov
+    steps amplify last-bit differences by at most ~10x here.  The GKB
+    solves run 6 steps at 1e-3: their short recurrences have no
+    reorthogonalization to damp the differences, which grow fast from the
+    semi-convergence minimum on."""
     import torch
+
+    def gkb(name, P, b, **extra):
+        fn, kw = gkb_solver(name)
+        return lambda: fn(P.A_op, b, P.x_true, tol=0.0, maxit=6, **kw,
+                          **extra)
 
     got = {}
     for dev in ("cuda", "cpu"):
@@ -770,45 +1281,59 @@ def phase_small_reference():
         for name, fn in (
                 ("single", lambda: solve(P, maxit=10)),
                 ("batched", lambda: solve_batched(P, b4, False, maxit=10)),
-                ("deferred", lambda: solve_batched(P, b4, True, maxit=10))):
+                ("deferred", lambda: solve_batched(P, b4, True, maxit=10)),
+                *((name, gkb(name, P, P.b)) for name in GKB_SINGLE),
+                *((name, gkb(name, P, b4)) for name in GKB_BATCHED),
+                *((name + REORTH, gkb(name, P, P.b, reorth=True))
+                  for name in GKB_SINGLE),
+                *((name + REORTH, gkb(name, P, b4, reorth=True))
+                  for name in GKB_BATCHED)):
             reset_counts()
             runs[name] = (fn(), counts())
         got[dev] = runs
+    expected = {"single": (21, 0, 0, 0), "batched": (0, 21, 0, 0),
+                "deferred": (0, 21, 0, 0)}
+    for name in GKB_SINGLE + GKB_BATCHED:
+        fwd, tr = gkb_launches(name, 6)
+        expected[name] = expected[name + REORTH] = \
+            (0, fwd, 0, tr) if "batched" in name else (fwd, 0, tr, 0)
     worst = {}
-    for name, want in (("single", (21, 0)), ("batched", (0, 21)),
-                       ("deferred", (0, 21))):
+    for name, want in expected.items():
         (rc, launches_cuda), (rh, launches_cpu) = got["cuda"][name], \
             got["cpu"][name]
-        check(launches_cuda == want and launches_cpu == (0, 0),
-              f"small reference {name}: (K1, K2) launches cuda="
+        check(launches_cuda == want and launches_cpu == (0, 0, 0, 0),
+              f"small reference {name}: (K1, K2, K3, K4) launches cuda="
               f"{launches_cuda} cpu={launches_cpu}, expected {want} and "
-              "(0, 0)")
+              "zeros")
         worst[name] = 0.0
+        tol = 1e-4 if name in ("single", "batched", "deferred") else 1e-3
         for field in ("res_hist", "err_hist", "x"):
             a = getattr(rc, field).cpu().to(torch.float64)
             h = getattr(rh, field).to(torch.float64)
             d = float((a - h).abs().max() / h.abs().max())
-            check(d <= 1e-4, f"small reference {name}: {field} card vs CPU "
+            check(d <= tol, f"small reference {name}: {field} card vs CPU "
                   f"{d:.3e}")
             worst[name] = max(worst[name], d)
-    say("small_reference", n=16, maxit=10, R=4, max_rel_diff=worst)
+    say("small_reference", n=16, maxit=10, gkb_maxit=6, R=4,
+        max_rel_diff=worst)
 
 
-def kernel_record(name, source, replaces, launches, recs64, recs128):
+def kernel_record(name, source, replaces, launches, path_recs, other_recs):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
-    ``library_ms`` and ``bound_ms`` are one n=64 BA-GMRES iteration's work
-    of this kernel, A's panel then B's; every panel, n=128 included, is
-    listed in ``shapes`` with the same keys."""
-    b_ms, b_by = bound([s["work"] for s in recs64])
+    ``library_ms`` and ``bound_ms`` are this kernel's work in one iteration
+    of its n=64 path (``path_recs``: A's panel then B's for BA-GMRES, A's
+    panel for the GKB solvers); every panel, n=128 included, is listed in
+    ``shapes`` with the same keys."""
+    b_ms, b_by = bound([s["work"] for s in path_recs])
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
-        max_abs_err=max(s["max_abs_err"] for s in recs64 + recs128),
-        ms=sum(s["ms"] for s in recs64),
-        plain_ms=sum(s["plain_ms"] for s in recs64),
+        max_abs_err=max(s["max_abs_err"] for s in path_recs + other_recs),
+        ms=sum(s["ms"] for s in path_recs),
+        plain_ms=sum(s["plain_ms"] for s in path_recs),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=sum(s["library_ms"] for s in recs64),
-        shapes=recs64 + recs128)
+        library_ms=sum(s["library_ms"] for s in path_recs),
+        shapes=path_recs + other_recs)
 
 
 def main():
@@ -816,28 +1341,42 @@ def main():
     import torch
 
     phase_build()
-    P = make_problem(64)
-    k1_64, k2_64 = phase_ct_kernels(P)
+    P = make_problem(64, adjoint=True)
+    k1_64, k2_64, k3_64, k4_64 = phase_ct_kernels(P)
     phase_small_kernels()
     phase_small_reference()
     k1_launches, its, ref0 = phase_main_path(P)
     k2_launches = phase_serving(P, its, ref0, full=True)
+    gkb = phase_gkb_path(P, GKB_SINGLE, gcv=True)
+    gkb_b = phase_gkb_serving(P, GKB_BATCHED,
+                              {k: v[2] for k, v in gkb.items()}, full=True)
+    k3_launches = gkb["lsqr"][0][2]
+    k4_launches = gkb_b["lsqr_batched"][3]
     del P
     torch.cuda.empty_cache()
-    P = make_problem(128)
-    k1_128, k2_128 = phase_ct_kernels(P)
+    P = make_problem(128, adjoint=True)
+    k1_128, k2_128, k3_128, k4_128 = phase_ct_kernels(P)
+    P.A_adj = P.B_adj = None        # the n=128 solves need forward panels
+    torch.cuda.empty_cache()
     _, its, ref0 = phase_main_path(P)
     phase_serving(P, its, ref0, full=False)
+    gkb = phase_gkb_path(P, ("lsqr",))
+    phase_gkb_serving(P, ("lsqr_batched",),
+                      {k: v[2] for k, v in gkb.items()}, full=False)
 
+    csrc = "hybrid_gmres_tpu_torch/csrc/"
+    pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
     print(json.dumps({"kernels": [
-        kernel_record("bucket_matvec",
-                      "hybrid_gmres_tpu_torch/csrc/bucket_spmv.cu",
-                      "hybrid_gmres_tpu/ops/spmv_pallas.py:46", k1_launches,
-                      k1_64, k1_128),
-        kernel_record("bucket_matmat",
-                      "hybrid_gmres_tpu_torch/csrc/bucket_spmm.cu",
-                      "hybrid_gmres_tpu/ops/spmv_pallas.py:220", k2_launches,
-                      k2_64, k2_128)]}))
+        kernel_record("bucket_matvec", csrc + "bucket_spmv.cu",
+                      pallas + ":46", k1_launches, k1_64, k1_128),
+        kernel_record("bucket_matmat", csrc + "bucket_spmm.cu",
+                      pallas + ":220", k2_launches, k2_64, k2_128),
+        kernel_record("bucket_rmatvec", csrc + "bucket_rspmv.cu",
+                      pallas + ":101", k3_launches, k3_64[:1],
+                      k3_64[1:] + k3_128),
+        kernel_record("bucket_rmatmat", csrc + "bucket_rspmv.cu",
+                      pallas + ":279", k4_launches, k4_64[:1],
+                      k4_64[1:] + k4_128)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

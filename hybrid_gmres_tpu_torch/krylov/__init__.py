@@ -4,6 +4,7 @@ from hybrid_gmres_tpu_torch.krylov.arnoldi import (
     arnoldi_step,
 )
 from hybrid_gmres_tpu_torch.krylov.projected import (
+    projected_gram_tikhonov_solve,
     projected_ls_solve,
     projected_tikhonov_solve,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "ArnoldiState",
     "arnoldi_orthogonalize",
     "arnoldi_step",
+    "projected_gram_tikhonov_solve",
     "projected_ls_solve",
     "projected_tikhonov_solve",
 ]

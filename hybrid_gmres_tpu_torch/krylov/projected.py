@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from hybrid_gmres_tpu_torch.utils.device import scalar_tensor
+
 
 def _over(v, ndim: int):
     """A scalar or batch-shaped tensor, ready to broadcast against a batch
@@ -64,10 +66,29 @@ def projected_tikhonov_solve(H, t, lam, kdim):
     dtype, device = H.dtype, H.device
     H = mask_columns(H, kdim)
     active = _active(maxit, kdim, device)
-    lam = _over(torch.as_tensor(lam, dtype=dtype, device=device), 2)
+    lam = _over(scalar_tensor(lam, dtype, device), 2)
     G = H.mT @ H + lam * torch.eye(maxit, dtype=dtype, device=device) + \
         torch.diag_embed((~active).to(dtype))
     rhs = H.mT @ t[..., None]
     L, _ = torch.linalg.cholesky_ex(G)
     y = torch.cholesky_solve(rhs, L)[..., 0]
     return torch.where(active, y, torch.zeros((), dtype=dtype, device=device))
+
+
+def projected_gram_tikhonov_solve(G_full, rhs_full, lam, kdim):
+    """Solve ``(G + lam I) y = rhs`` restricted to the leading kdim block.
+
+    ``G_full`` (..., maxit, maxit) must be zero outside its leading kdim x
+    kdim block and ``rhs_full`` (..., maxit) zero beyond kdim; ``lam`` and
+    ``kdim`` may be Python scalars or tensors.  Used by the hybrid-LSMR
+    normal equations (``hybrid_lsmr_solver.m:41-44``) and the AB-RTP inner
+    solve.  LU through ``solve_ex``: no host sync."""
+    maxit = G_full.shape[-1]
+    dtype, device = G_full.dtype, G_full.device
+    active = _active(maxit, kdim, device)
+    lam = _over(scalar_tensor(lam, dtype, device), 2)
+    G = G_full + lam * torch.eye(maxit, dtype=dtype, device=device) + \
+        torch.diag_embed((~active).to(dtype))
+    y, _ = torch.linalg.solve_ex(G, rhs_full[..., None])
+    return torch.where(active, y[..., 0],
+                       torch.zeros((), dtype=dtype, device=device))

@@ -4,14 +4,20 @@ from hybrid_gmres_tpu_torch.ops.ordering import (
     reorder_pair,
 )
 from hybrid_gmres_tpu_torch.ops.linear_operator import (
-    LinearOperator,
+    AugmentedOperator,
     DenseOperator,
+    LinearOperator,
+    ProductOperator,
+    ShiftedOperator,
     as_operator,
 )
 
 __all__ = [
-    "LinearOperator",
+    "AugmentedOperator",
     "DenseOperator",
+    "LinearOperator",
+    "ProductOperator",
+    "ShiftedOperator",
     "as_operator",
     "inverse_perm",
     "morton_perm",

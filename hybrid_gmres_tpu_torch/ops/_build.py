@@ -24,14 +24,20 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 _VP, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# library (source name) -> the argument types of its one C entry point of
-# the same kernel family (pointers and the stream as c_void_p)
+# library (source name) -> the argument types of each of its C entry points
+# (pointers and the stream as c_void_p)
 LIBRARIES = {
-    "bucket_spmv": ("bucket_matvec", [_I, _I, _I, _VP, _VP, _VP, _VP, _VP,
-                                      _VP, _VP, _VP, _I, _I, _I, _VP]),
-    "bucket_spmm": ("bucket_matmat", [_I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+    "bucket_spmv": {"bucket_matvec": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+                                      _VP, _VP, _VP, _I, _I, _I, _VP]},
+    "bucket_spmm": {"bucket_matmat": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _VP, _I, _I, _I, _I, _I64,
-                                      _I64, _I64, _I64, _I, _VP]),
+                                      _I64, _I64, _I64, _I, _VP]},
+    "bucket_rspmv": {
+        "bucket_rmatvec": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "bucket_rmatmat": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                           _VP, _VP, _I, _I, _I, _I, _I, _I, _I64, _I64,
+                           _I64, _I64, _VP]},
 }
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -84,16 +90,16 @@ def build_all(extra_flags=()) -> dict:
 
 
 def load_library(name: str = "bucket_spmv") -> ctypes.CDLL:
-    """Build (once) and load one kernel library, with the C signature of its
-    entry point declared."""
+    """Build (once) and load one kernel library, with the C signature of
+    each of its entry points declared."""
     with _LOCK:
         if name not in _LIBS:
             _, out = _paths(name)
             if not os.path.exists(out):
                 build_all()
             lib = ctypes.CDLL(out)
-            entry, argtypes = LIBRARIES[name]
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
+            for entry, argtypes in LIBRARIES[name].items():
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
             _LIBS[name] = lib
         return _LIBS[name]

@@ -19,6 +19,22 @@ the CUDA kernel walks, built once at pack time:
   * ``pos_row`` (positions,): position -> original block-row, -1 for bucket
     padding positions (the JAX package keeps only its inverse ``inv_perm``).
 
+and the block-column index the TRANSPOSED kernels walk (``y = A^T u`` from
+this same panel), see :func:`_transposed_index`:
+
+  * ``col_blk`` / ``col_row`` (live blocks,): every live block (a slot below
+    its position's ``pos_cnt``, on a position that is not bucket padding)
+    listed by block column, in ascending flat order inside a column: its
+    index in ``blocks_flat`` and its original block-row;
+  * ``seg_off`` (segments + 1,): the lists cut into segments of at most
+    ``seg_len`` blocks that never span two block columns; one thread block
+    of the kernel sums one segment;
+  * ``col_seg`` (ncb + 1,): the segments of each block column, summed in
+    this order by the kernel's finishing pass.
+
+The index is a function of the panel alone, so the order of every sum in the
+transposed products is fixed at pack time.
+
 Packed int4 nibble pairs (``packed4``) are not ported yet (ROADMAP).
 """
 
@@ -55,6 +71,11 @@ class BucketedBlockELL:
     pos_off: torch.Tensor      # (positions,) int64
     pos_cnt: torch.Tensor      # (positions,) int32
     pos_row: torch.Tensor      # (positions,) int32, -1 on padding positions
+    col_blk: torch.Tensor      # (live,) int32: flat block index, by column
+    col_row: torch.Tensor      # (live,) int32: its original block-row
+    seg_off: torch.Tensor      # (segments + 1,) int32 into col_blk/col_row
+    col_seg: torch.Tensor      # (ncb + 1,) int32 into seg_off
+    seg_len: int               # most blocks in one segment
 
     @classmethod
     def from_numpy(cls, buckets, inv_perm, shape, ncb, packed4=False,
@@ -81,7 +102,10 @@ class BucketedBlockELL:
             cnts.append(_slot_counts(blocks, bcols))
             base += nbr_b * maxb_b
         blocks_flat = _to_torch(np.concatenate(flat_b), device, dtype)
-        bcols_flat = torch.as_tensor(np.concatenate(flat_c), device=device)
+        bcols_np, off_np, cnt_np = (np.concatenate(flat_c),
+                                    np.concatenate(offs),
+                                    np.concatenate(cnts))
+        bcols_flat = torch.as_tensor(bcols_np, device=device)
         views, start = [], 0
         for blocks, bcols in buckets:
             nbr_b, maxb_b = bcols.shape
@@ -93,6 +117,8 @@ class BucketedBlockELL:
         n_pos = sum(int(c.shape[0]) for _, c in buckets)
         pos_row = np.full(n_pos, -1, np.int32)
         pos_row[inv_perm] = np.arange(len(inv_perm), dtype=np.int32)
+        col_blk, col_row, seg_off, col_seg, seg_len = _transposed_index(
+            bcols_np, off_np, cnt_np, pos_row, int(ncb))
         return cls(
             buckets=tuple(views),
             inv_perm=torch.as_tensor(inv_perm, device=device),
@@ -100,9 +126,14 @@ class BucketedBlockELL:
             ncb=int(ncb),
             blocks_flat=blocks_flat,
             bcols_flat=bcols_flat,
-            pos_off=torch.as_tensor(np.concatenate(offs), device=device),
-            pos_cnt=torch.as_tensor(np.concatenate(cnts), device=device),
+            pos_off=torch.as_tensor(off_np, device=device),
+            pos_cnt=torch.as_tensor(cnt_np, device=device),
             pos_row=torch.as_tensor(pos_row, device=device),
+            col_blk=torch.as_tensor(col_blk, device=device),
+            col_row=torch.as_tensor(col_row, device=device),
+            seg_off=torch.as_tensor(seg_off, device=device),
+            col_seg=torch.as_tensor(col_seg, device=device),
+            seg_len=seg_len,
         )
 
     @property
@@ -140,6 +171,46 @@ def _slot_counts(blocks, bcols):
     first_live = (first != 0).any(axis=1)
     return np.where(last > 0, last, first_live.astype(np.int64)).astype(
         np.int32)
+
+
+# The transposed kernels run one thread block per segment: enough segments
+# to fill the card's 132 multiprocessors several times over on the small
+# panel, and short enough that the staged ``u`` values of one segment fit in
+# shared memory at 8 right-hand sides (32 blocks x 32 rows x 8 x 4 bytes).
+SEG_TARGET = 1024
+SEG_MAX = 32
+
+
+def _transposed_index(bcols_flat, pos_off, pos_cnt, pos_row, ncb):
+    """The pack-time block-column index of a panel (numpy in, numpy out).
+
+    Returns ``(col_blk, col_row, seg_off, col_seg, seg_len)``: the live
+    blocks sorted by block column (stable, so ascending flat index inside a
+    column), the original block-row of each, the segment boundaries and the
+    segments of each column.  Bucket padding positions and the padded slots
+    past ``pos_cnt`` are not listed: they hold zero blocks.
+    """
+    live_pos = np.nonzero((pos_row >= 0) & (pos_cnt > 0))[0]
+    cnt = pos_cnt[live_pos].astype(np.int64)
+    total = int(cnt.sum())
+    start = np.concatenate([[0], np.cumsum(cnt)[:-1]]) if len(cnt) else cnt
+    flat = np.repeat(pos_off[live_pos], cnt) + (
+        np.arange(total) - np.repeat(start, cnt))
+    rows = np.repeat(pos_row[live_pos], cnt)
+    cols = bcols_flat[flat]
+    order = np.argsort(cols, kind="stable")
+    per_col = np.bincount(cols, minlength=ncb).astype(np.int64)
+    seg_len = int(min(SEG_MAX, max(1, -(-total // SEG_TARGET))))
+    nseg = -(-per_col // seg_len)
+    col_seg = np.concatenate([[0], np.cumsum(nseg)])
+    col_start = np.concatenate([[0], np.cumsum(per_col)[:-1]])
+    seg_col = np.repeat(np.arange(ncb), nseg)
+    seg_off = col_start[seg_col] + (
+        np.arange(int(col_seg[-1])) - col_seg[seg_col]) * seg_len
+    seg_off = np.concatenate([seg_off, [total]])
+    i32 = np.int32
+    return (flat[order].astype(i32), rows[order].astype(i32),
+            seg_off.astype(i32), col_seg.astype(i32), seg_len)
 
 
 def _to_torch(arr, device, dtype):

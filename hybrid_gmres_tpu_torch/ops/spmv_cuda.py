@@ -12,10 +12,17 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     ``bucketed_bsr_matmat`` (K2) the same way, through
     ``csrc/bucket_spmm.cu``: one launch per application, one panel read for
     up to 8 right-hand sides; :func:`bucket_matmat_plain` on a CPU tensor.
-  * K3 (``_bucket_rmatvec``) and K4 (``_bucket_rmatmat``) are not ported
-    yet: on a CUDA tensor the paths that need them raise
-    ``NotImplementedError``; on CPU they use plain versions.  See ROADMAP
-    queue 2.
+  * :func:`bucket_rmatvec` (K3) and :func:`bucket_rmatmat` (K4) replace
+    ``_bucket_rmatvec`` / ``_bucket_rmatmat`` and their wrappers
+    ``bucketed_bsr_rmatvec`` / ``bucketed_bsr_rmatmat``: ``A^T u`` from the
+    FORWARD panel through ``csrc/bucket_rspmv.cu``, which walks the
+    pack-time block-column index of ``ops/sparse.py`` (every sum in a fixed
+    order, so the result is the same bits from run to run and column j of K4
+    is K3 on column j); :func:`bucket_rmatvec_plain` and
+    :func:`bucket_rmatmat_plain` on a CPU tensor.
+
+On a CUDA tensor a wrapper launches its kernel or raises; it never falls back
+to the plain version.
 """
 
 from __future__ import annotations
@@ -35,15 +42,10 @@ from hybrid_gmres_tpu_torch.utils.device import require_device
 # kernel dtype codes, matching bucket_spmv.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _BLOCK_ROWS = (8, 16, 32)
-# widest block each kernel takes: K1 runs one thread per block column, K2
-# caps its thread blocks at 512 threads
-_MAX_BC = {"bucket_matvec": 1024, "bucket_matmat": 512}
-
-_K3_TODO = ("K3 (_bucket_rmatvec, transposed SpMV from the forward panel) is "
-            "not ported to CUDA yet: build the operator with with_adjoint="
-            "True, or see ROADMAP queue 2")
-_K4_TODO = ("K4 (_bucket_rmatmat, multi-RHS transposed SpMM) is not ported "
-            "to CUDA yet: see ROADMAP queue 2")
+# widest block each kernel takes: K1, K3 and K4 run one thread per block
+# column, K2 caps its thread blocks at 512 threads
+_MAX_BC = {"bucket_matvec": 1024, "bucket_matmat": 512,
+           "bucket_rmatvec": 1024, "bucket_rmatmat": 1024}
 
 
 def bucket_matvec_plain(bell: BucketedBlockELL, x, scale=None):
@@ -70,7 +72,9 @@ def bucket_matvec_plain(bell: BucketedBlockELL, x, scale=None):
 
 def _check_launch(name, bell, x, scale, x_shape):
     """Argument checks shared by the kernel wrappers; returns the dtype
-    code and the float32 contiguous ``scale`` (or None)."""
+    code and the float32 contiguous ``scale`` (or None).  ``scale`` always
+    has one entry per row of A: the forward kernels apply it to their
+    output, the transposed ones to their input."""
     br, bc = bell.block_shape
     m = bell.shape[0]
     code = _DTYPE_CODES.get(bell.dtype)
@@ -158,7 +162,7 @@ def bucket_matmat_plain(bell: BucketedBlockELL, X, scale=None):
     return y.to(X.dtype)
 
 
-def bucket_matmat(bell: BucketedBlockELL, X, scale=None):
+def bucket_matmat(bell: BucketedBlockELL, X, scale=None, out=None):
     """``Y = diag(scale) A X`` for ``X`` (n, R) through K2: the CUDA kernel
     for a CUDA ``X``, the plain version for a CPU ``X``.
 
@@ -167,10 +171,14 @@ def bucket_matmat(bell: BucketedBlockELL, X, scale=None):
     so a row-major (n, R) tensor and the transposed view of an (R, n) one
     (the batched solver's layout) both go in without a copy; ``Y`` comes
     back in the same orientation (for a transposed ``X``, the transposed
-    view of a contiguous (R, m) tensor).  ``bucket_matmat.launches`` counts
-    the launches (the count moves only where the kernel is launched)."""
+    view of a contiguous (R, m) tensor).  ``out``: an (m, R) tensor of
+    ``X``'s device to write into, with any strides (the top rows of a taller
+    slab, say); the kernel writes a float32 ``out`` in place, without a
+    copy.  ``bucket_matmat.launches`` counts the launches (the count moves
+    only where the kernel is launched)."""
     if X.device.type == "cpu":
-        return bucket_matmat_plain(bell, X, scale)
+        Y = bucket_matmat_plain(bell, X, scale)
+        return Y if out is None else out.copy_(Y)
     if X.device.type != "cuda":
         raise ValueError(f"bucket_matmat: unsupported device {X.device}")
     br, bc = bell.block_shape
@@ -181,10 +189,18 @@ def bucket_matmat(bell: BucketedBlockELL, X, scale=None):
     R = X.shape[1]
     code, scale = _check_launch("bucket_matmat", bell, X, scale, (n, R))
     X32 = X.to(torch.float32)
-    if X32.stride(0) == 1 and X32.stride(1) >= max(n, 1):  # transposed view
+    transposed = X32.stride(0) == 1 and X32.stride(1) >= max(n, 1)
+    if not transposed:
+        X32 = X32.contiguous()
+    if out is not None:
+        if tuple(out.shape) != (m, R) or out.device != X.device:
+            raise ValueError(f"bucket_matmat: out must be {(m, R)} on "
+                             f"{X.device}")
+        Y = out if out.dtype == torch.float32 else torch.empty_like(
+            out, dtype=torch.float32)
+    elif transposed:
         Y = torch.empty((R, m), dtype=torch.float32, device=X.device).T
     else:
-        X32 = X32.contiguous()
         Y = torch.empty((m, R), dtype=torch.float32, device=X.device)
     n_pos = bell.pos_row.shape[0]
     if n_pos and R:
@@ -205,34 +221,156 @@ def bucket_matmat(bell: BucketedBlockELL, X, scale=None):
             raise RuntimeError(f"bucket_matmat: CUDA launch failed "
                                f"(cudaError {err})")
         bucket_matmat.launches += 1
+    if out is not None:
+        return out if Y is out else out.copy_(Y)
     return Y.to(X.dtype)
 
 
 bucket_matmat.launches = 0
 
 
-def bucket_rmatvec_plain(bell: BucketedBlockELL, u):
-    """Plain PyTorch ``y = A^T u`` from the FORWARD panel (the twin of the
-    JAX ``bucketed_bsr_rmatvec`` / K3).  float32 accumulation; returns
-    ``u.dtype``."""
-    br, bc = bell.block_shape
-    m, n = bell.shape
+def _sorted_rows(bell, U, scale):
+    """``diag(scale) U`` in float32, zero-padded to whole block-rows and
+    gathered into the panel's sorted position order: (positions, br, R),
+    zero on bucket padding positions."""
+    br = bell.block_shape[0]
+    m = bell.shape[0]
     nbr = -(-m // br)
-    u_pad = torch.zeros(nbr * br, dtype=torch.float32, device=u.device)
-    u_pad[:m] = u.to(torch.float32)
-    u_pad = u_pad.view(nbr, br)
+    U32 = U.to(torch.float32)
+    if scale is not None:
+        # A = diag(s) Q  =>  A^T u = Q^T (s * u), pre-scaled in float32
+        U32 = scale.to(torch.float32)[:, None] * U32
+    u_pad = torch.zeros((nbr * br, U.shape[1]), dtype=torch.float32,
+                        device=U.device)
+    u_pad[:m] = U32
+    u_pad = u_pad.view(nbr, br, -1)
     valid = bell.pos_row >= 0
-    u_sorted = torch.where(valid[:, None], u_pad[bell.pos_row.long().clamp(
-        min=0)], torch.zeros((), device=u.device))      # (positions, br)
-    y2d = torch.zeros((bell.ncb, bc), dtype=torch.float32, device=u.device)
+    return torch.where(valid[:, None, None],
+                       u_pad[bell.pos_row.long().clamp(min=0)],
+                       torch.zeros((), device=U.device))
+
+
+def bucket_rmatmat_plain(bell: BucketedBlockELL, U, scale=None):
+    """Plain PyTorch ``Y = A^T diag(scale) U`` for ``U`` (m, R) from the
+    FORWARD panel: gather the row-sorted ``U``, one einsum per bucket,
+    ``index_add_`` into the (ncb, bc, R) output (the twin of the JAX
+    ``bucketed_bsr_rmatmat`` / K4).  float32 accumulation; returns
+    ``U.dtype``, row-major (n, R)."""
+    br, bc = bell.block_shape
+    n = bell.shape[1]
+    R = U.shape[1]
+    u_sorted = _sorted_rows(bell, U, scale)          # (positions, br, R)
+    y3d = torch.zeros((bell.ncb, bc, R), dtype=torch.float32,
+                      device=U.device)
     off = 0
     for blocks, bcols in bell.buckets:
         nbr_b = blocks.shape[0]
-        contrib = torch.einsum("rbij,ri->rbj", blocks.to(torch.float32),
+        contrib = torch.einsum("rbij,rik->rbjk", blocks.to(torch.float32),
                                u_sorted[off:off + nbr_b])
-        y2d.index_add_(0, bcols.reshape(-1).long(), contrib.reshape(-1, bc))
+        y3d.index_add_(0, bcols.reshape(-1).long(),
+                       contrib.reshape(-1, bc, R))
         off += nbr_b
-    return y2d.reshape(-1)[:n].to(u.dtype)
+    return y3d.reshape(-1, R)[:n].to(U.dtype)
+
+
+def bucket_rmatvec_plain(bell: BucketedBlockELL, u, scale=None):
+    """Plain PyTorch ``y = A^T (scale * u)`` from the FORWARD panel (the twin
+    of the JAX ``bucketed_bsr_rmatvec`` / K3).  float32 accumulation;
+    returns ``u.dtype``."""
+    return bucket_rmatmat_plain(bell, u[:, None], scale)[:, 0]
+
+
+def _index_pointers(bell):
+    return (bell.blocks_flat.data_ptr(), bell.col_blk.data_ptr(),
+            bell.col_row.data_ptr(), bell.seg_off.data_ptr(),
+            bell.col_seg.data_ptr())
+
+
+def _rmat_launch(name, bell, U32, scale, Y, extra):
+    """One call of entry point ``name`` of the transposed library: the main
+    kernel over the panel's segments, then the fixed-order sum of their
+    partials into ``Y``."""
+    from hybrid_gmres_tpu_torch.ops._build import load_library
+
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    code, scale = _check_launch(name, bell, U32, scale, tuple(U32.shape))
+    n_seg = bell.seg_off.shape[0] - 1
+    R = U32.shape[1] if U32.ndim == 2 else 1
+    part = torch.empty((n_seg, R, bc), dtype=torch.float32,
+                       device=U32.device)
+    lib = load_library("bucket_rspmv")
+    stream = torch.cuda.current_stream(U32.device).cuda_stream
+    err = getattr(lib, name)(
+        code, br, bc, *_index_pointers(bell), U32.data_ptr(),
+        None if scale is None else scale.data_ptr(), part.data_ptr(),
+        Y.data_ptr(), n_seg, bell.seg_len, bell.ncb, m, n, *extra,
+        ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def bucket_rmatvec(bell: BucketedBlockELL, u, scale=None):
+    """``y = A^T (scale * u)`` from the forward panel through K3: the CUDA
+    kernel for a CUDA ``u``, the plain version for a CPU ``u``.  ``scale``
+    (m,) is the int8 row scale, applied to ``u`` inside the kernel.
+
+    One call is the main kernel plus its finishing pass;
+    ``bucket_rmatvec.launches`` counts the calls that launched them (it
+    moves nowhere else)."""
+    if u.device.type == "cpu":
+        return bucket_rmatvec_plain(bell, u, scale)
+    if u.device.type != "cuda":
+        raise ValueError(f"bucket_rmatvec: unsupported device {u.device}")
+    m, n = bell.shape
+    if tuple(u.shape) != (m,):
+        raise ValueError(f"bucket_rmatvec: input has shape {tuple(u.shape)}, "
+                         f"the operator needs {(m,)}")
+    u32 = u.to(torch.float32).contiguous()
+    y = torch.empty(n, dtype=torch.float32, device=u.device)
+    if n:
+        _rmat_launch("bucket_rmatvec", bell, u32, scale, y, ())
+        bucket_rmatvec.launches += 1
+    return y.to(u.dtype)
+
+
+bucket_rmatvec.launches = 0
+
+
+def bucket_rmatmat(bell: BucketedBlockELL, U, scale=None):
+    """``Y = A^T diag(scale) U`` for ``U`` (m, R) from the forward panel
+    through K4: the CUDA kernel for a CUDA ``U``, the plain version for a
+    CPU ``U``.
+
+    One call whatever R (tiles of 8 columns, one panel read each).  ``U`` is
+    read through its strides, so a row-major tensor, the transposed view of
+    an (R, m) one and a row slice of a taller slab all go in without a copy;
+    ``Y`` comes back in the orientation of ``U`` (for a column-major ``U``,
+    the transposed view of a contiguous (R, n) tensor).
+    ``bucket_rmatmat.launches`` counts the calls that launched the kernel."""
+    if U.device.type == "cpu":
+        return bucket_rmatmat_plain(bell, U, scale)
+    if U.device.type != "cuda":
+        raise ValueError(f"bucket_rmatmat: unsupported device {U.device}")
+    m, n = bell.shape
+    if U.ndim != 2 or U.shape[0] != m:
+        raise ValueError(f"bucket_rmatmat: U must be ({m}, R), got "
+                         f"{tuple(U.shape)}")
+    R = U.shape[1]
+    U32 = U.to(torch.float32)
+    if U32.stride(0) == 1 and U32.stride(1) >= max(m, 1):  # column-major
+        Y = torch.empty((R, n), dtype=torch.float32, device=U.device).T
+    else:
+        Y = torch.empty((n, R), dtype=torch.float32, device=U.device)
+    if n and R:
+        _rmat_launch("bucket_rmatmat", bell, U32, scale, Y,
+                     (R, U32.stride(0), U32.stride(1), Y.stride(0),
+                      Y.stride(1)))
+        bucket_rmatmat.launches += 1
+    return Y.to(U.dtype)
+
+
+bucket_rmatmat.launches = 0
 
 
 def _row_quantize_csr(csr, qmax: int = 127):
@@ -279,9 +417,11 @@ class BlockELLOperator(LinearOperator):
 
     ``rmatvec`` uses a separately packed panel of the transpose when one was
     built (``with_adjoint=True``), applied through the same kernel K1
-    (``rmatmat``: K2).  For
-    a mismatched pair, pass B as its own operator — B is never derived from
-    A.
+    (``rmatmat``: K2).  Without one (``with_adjoint=False``, what
+    ``ct_gpu_operators`` builds by default: half the panel memory) it applies
+    the forward panel through the transposed kernels K3 (``rmatmat``: K4).
+    For a mismatched pair, pass B as its own operator — B is never derived
+    from A.
 
     ``dtype=int8`` stores per-row symmetrically quantized blocks with f32 row
     scales (``A ~= diag(s) Q``), applied in the kernel epilogue.  The adjoint
@@ -358,30 +498,30 @@ class BlockELLOperator(LinearOperator):
         return bucket_matvec(self.fwd, x, self.fwd_scale)
 
     def rmatvec(self, u):
+        if self.adj is None:
+            # A = diag(s) Q  =>  A^T u = Q^T (s * u): K3 scales u as it
+            # reads it, so the pair is an exact transpose by construction
+            return bucket_rmatvec(self.fwd, u, self.fwd_scale)
         out_dtype = u.dtype
         if self.fwd_scale is not None:
-            # A = diag(s) Q  =>  A^T u = Q^T (s * u), pre-scaled in f32
             u = self.fwd_scale * u.to(torch.float32)
-        if self.adj is None:
-            if u.device.type != "cpu":
-                raise NotImplementedError(_K3_TODO)
-            y = bucket_rmatvec_plain(self.fwd, u)
-        else:
-            y = bucket_matvec(self.adj, u, self.adj_scale)
-        return y.to(out_dtype)
+        return bucket_matvec(self.adj, u, self.adj_scale).to(out_dtype)
 
     def matmat(self, X):
         """Y (m, R) = A @ X (n, R) through K2: one panel read serves all
         the columns of a tile."""
         return bucket_matmat(self.fwd, X, self.fwd_scale)
 
+    def matmat_into(self, X, out):
+        """``matmat`` written into ``out`` (m, R), any strides, in place."""
+        return bucket_matmat(self.fwd, X, self.fwd_scale, out=out)
+
     def rmatmat(self, U):
-        """Y (n, R) = A^T @ U (m, R): K2 on the adjoint panel when there is
-        one, ``U`` pre-scaled by ``fwd_scale``."""
+        """Y (n, R) = A^T @ U (m, R): K4 on the forward panel, or K2 on the
+        adjoint panel when there is one (``U`` pre-scaled by
+        ``fwd_scale``)."""
         if self.adj is None:
-            if U.device.type != "cpu":
-                raise NotImplementedError(_K4_TODO)
-            return super().rmatmat(U)
+            return bucket_rmatmat(self.fwd, U, self.fwd_scale)
         out_dtype = U.dtype
         if self.fwd_scale is not None:
             U = self.fwd_scale[:, None] * U.to(torch.float32)

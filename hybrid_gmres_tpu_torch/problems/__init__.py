@@ -5,6 +5,12 @@ from hybrid_gmres_tpu_torch.problems.ct import (
     ct_mismatched,
     shepp_logan,
 )
+from hybrid_gmres_tpu_torch.problems.onedim import (
+    deriv2,
+    generate_test_problem,
+    heat,
+    shaw,
+)
 from hybrid_gmres_tpu_torch.problems.noise import (
     add_noise,
     perturb_backprojector,
@@ -18,4 +24,8 @@ __all__ = [
     "ct_gpu_operators",
     "ct_mismatched",
     "shepp_logan",
+    "deriv2",
+    "generate_test_problem",
+    "heat",
+    "shaw",
 ]

@@ -221,9 +221,16 @@ BLOCK_B = (8, 128)
 N_BUCKETS = 8
 
 
-def ct_gpu_operators(prob: CTProblem, dtype="int8", device="cuda"):
+def ct_gpu_operators(prob: CTProblem, dtype="int8", device="cuda",
+                     with_adjoint: bool = False):
     """The production path for a CT problem: Morton-ordered block-ELL
-    operators (twin of ``ct_tpu_operators``), forward panels only.
+    operators (twin of ``ct_tpu_operators``).
+
+    ``with_adjoint=False`` (the default) builds forward panels only: the
+    GMRES solvers need nothing else (``B`` is its own operator), and the GKB
+    solvers (LSQR/LSMR) apply ``A^T`` from the forward panel through the
+    transposed kernels.  ``with_adjoint=True`` also packs a panel of each
+    transpose (twice the panel memory), applied through the forward kernels.
 
     Returns ``(A_op, B_op, b_exact_p, x_true_p, ray_perm, pix_perm)``: rays
     z-ordered by (angle, det) and pixels by (x, y) — a pure relabeling that
@@ -246,10 +253,10 @@ def ct_gpu_operators(prob: CTProblem, dtype="int8", device="cuda"):
         ray_perm, pix_perm)
     A_op = BlockELLOperator.from_csr(
         A_csr, dtype=dtype, block=BLOCK_A, n_buckets=N_BUCKETS,
-        with_adjoint=False, device=device)
+        with_adjoint=with_adjoint, device=device)
     B_op = BlockELLOperator.from_csr(
         B_csr, dtype=dtype, block=BLOCK_B, n_buckets=N_BUCKETS,
-        with_adjoint=False, device=device)
+        with_adjoint=with_adjoint, device=device)
     return (A_op, B_op,
             torch.as_tensor(prob.b_exact[ray_perm], device=device),
             torch.as_tensor(prob.x_true[pix_perm], device=device),

@@ -25,6 +25,7 @@ from hybrid_gmres_tpu_torch.krylov.projected import (
     mask_columns,
     projected_tikhonov_solve,
 )
+from hybrid_gmres_tpu_torch.utils.device import scalar_tensor
 
 
 def _finish(residual_norm_sq, trace_val, trace_dim, weight):
@@ -52,7 +53,7 @@ def gcv_from_H(H, t, lam, trace_dim, kdim, weight=1.0, R=None, rhs=None):
     """
     kmax = H.shape[-1]
     dtype, device = H.dtype, H.device
-    lam = torch.as_tensor(lam, dtype=dtype, device=device)
+    lam = scalar_tensor(lam, dtype, device)
     H = mask_columns(H, kdim)
     y = projected_tikhonov_solve(H, t, lam, kdim)
     if R is None:
@@ -91,7 +92,7 @@ def gcv_from_factors(factors, lam, trace_dim, weight=1.0):
     a whole grid at once give the factors a trailing batch dimension of 1
     (``f.unsqueeze(...)``) and ``lam`` the grid."""
     sb, g, t_perp_sq, s_tr = factors
-    lam = torch.as_tensor(lam, dtype=g.dtype, device=g.device)[..., None]
+    lam = scalar_tensor(lam, g.dtype, g.device)[..., None]
     shrink = lam / (sb**2 + lam)
     residual_norm_sq = torch.sum(shrink**2 * g * g, dim=-1) + t_perp_sq
     trace_val = torch.sum(s_tr**2 / (s_tr**2 + lam), dim=-1)

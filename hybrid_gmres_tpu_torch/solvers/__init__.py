@@ -1,9 +1,22 @@
-from hybrid_gmres_tpu_torch.solvers.common import GMRESResult
+from hybrid_gmres_tpu_torch.solvers.common import (
+    GKBResult,
+    GKBState,
+    GMRESResult,
+)
 from hybrid_gmres_tpu_torch.solvers.gmres import ab_gmres, ba_gmres
 from hybrid_gmres_tpu_torch.solvers.batched import (
     ab_gmres_batched,
     ba_gmres_batched,
 )
+from hybrid_gmres_tpu_torch.solvers.lsqr import hybrid_lsqr, lsqr
+from hybrid_gmres_tpu_torch.solvers.lsmr import hybrid_lsmr, lsmr
+from hybrid_gmres_tpu_torch.solvers.gkb_batched import (
+    hybrid_lsqr_batched,
+    lsmr_batched,
+    lsqr_batched,
+)
 
-__all__ = ["GMRESResult", "ab_gmres", "ab_gmres_batched", "ba_gmres",
-           "ba_gmres_batched"]
+__all__ = ["GKBResult", "GKBState", "GMRESResult", "ab_gmres",
+           "ab_gmres_batched", "ba_gmres", "ba_gmres_batched", "hybrid_lsmr",
+           "hybrid_lsqr", "hybrid_lsqr_batched", "lsmr", "lsmr_batched",
+           "lsqr", "lsqr_batched"]

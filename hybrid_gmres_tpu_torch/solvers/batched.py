@@ -28,7 +28,10 @@ import numpy as np
 import torch
 
 from hybrid_gmres_tpu_torch.krylov.projected import projected_tikhonov_solve
-from hybrid_gmres_tpu_torch.ops.linear_operator import as_operator
+from hybrid_gmres_tpu_torch.ops.linear_operator import (
+    as_operator,
+    as_vector,
+)
 from hybrid_gmres_tpu_torch.solvers.common import GMRESResult
 from hybrid_gmres_tpu_torch.solvers.gmres import _make_project_solve
 from hybrid_gmres_tpu_torch.utils.checkpoint import (
@@ -338,9 +341,9 @@ def _slice_result(res: GMRESResult, sl):
 
 def _batched_solver(kind, A, B, b, x_true, tol, maxit, lam, gcv_grid,
                     x0, resume_from, chunk_rhs, defer_histories=False):
-    A = as_operator(A)
-    B = as_operator(B)
-    b = torch.as_tensor(b)
+    b = as_vector(b)
+    A = as_operator(A, device=b.device)
+    B = as_operator(B, device=b.device)
     if b.ndim != 2:
         raise ValueError(f"{kind}_gmres_batched expects b of shape (m, R); "
                          f"use {kind}_gmres for a single RHS")

@@ -58,6 +58,32 @@ class GMRESResult(NamedTuple):
     fp: Optional[torch.Tensor] = None    # (3,) resume fingerprint
 
 
+class GKBState(NamedTuple):
+    """Checkpointable GKB recurrence state (LSQR/LSMR resume).
+
+    ``carry`` is the loop's state at the last completed iteration, in the
+    JAX package's order and shapes (vectors, rotation scalars, active and
+    niters, plus the stored bases when ``reorth=True``), so that a state
+    saved by either package resumes in the other; the histories are the
+    UNPATCHED records (LSQR's final true-residual patch is re-applied after
+    a resume, so ``resume(run(maxit=k), maxit=K) == run(maxit=K)``)."""
+
+    carry: tuple
+    res_hist: torch.Tensor
+    err_hist: torch.Tensor
+    ar_hist: Optional[torch.Tensor] = None
+    fp: Optional[torch.Tensor] = None  # (x0, lam, tag) fingerprint
+
+
+class GKBResult(NamedTuple):
+    x: torch.Tensor
+    err_hist: torch.Tensor
+    res_hist: torch.Tensor
+    niters: torch.Tensor
+    ar_hist: Optional[torch.Tensor] = None  # LSMR only: ||A^T r|| history
+    state: Optional[GKBState] = None        # resume checkpoint (GKB family)
+
+
 def _todo(option, item):
     return NotImplementedError(
         f"{option} is not ported yet: see ROADMAP queue 1, {item}")
@@ -238,6 +264,32 @@ def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
     active_f = (nsteps == maxit) & ~any_hit & ~broke
     return GMRESResult(x, err_hist, res_hist, niters, Q, H, beta, IMG=IMG,
                        S=S, active=active_f)
+
+
+def safe_normalize(vec):
+    """(vec/||vec||, ||vec||, ok): zero vectors normalize to zero, ok=False.
+    All three stay on the device."""
+    nrm = torch.linalg.vector_norm(vec)
+    ok = nrm > 0
+    safe = torch.where(ok, nrm, torch.ones_like(nrm))
+    return torch.where(ok, vec / safe, torch.zeros_like(vec)), nrm, ok
+
+
+def grow_stored_bases(carry, maxit, idx):
+    """Pad the stored reorth bases of a resumed carry out to the new
+    ``maxit + 1`` budget along axis 1 ((space, k) and batched (space, k, R)
+    bases alike).  ``idx``: positions of the bases in the carry tuple.
+
+    For callers that keep a carry in the JAX axis order; the solvers of
+    this package copy a resumed basis into their own row-major layout
+    instead (``lsqr.stored_basis``)."""
+    carry = list(carry)
+    for i in idx:
+        extra = maxit + 1 - carry[i].shape[1]
+        if extra > 0:
+            pad = (0, 0) * (carry[i].ndim - 2) + (0, extra)
+            carry[i] = torch.nn.functional.pad(carry[i], pad)
+    return tuple(carry)
 
 
 def rel_residual_fn(A_op, b):

@@ -21,7 +21,10 @@ from hybrid_gmres_tpu_torch.krylov.projected import (
     projected_ls_solve,
     projected_tikhonov_solve,
 )
-from hybrid_gmres_tpu_torch.ops.linear_operator import as_operator
+from hybrid_gmres_tpu_torch.ops.linear_operator import (
+    as_operator,
+    as_vector,
+)
 from hybrid_gmres_tpu_torch.solvers.common import (
     FusedResidual,
     GMRESResult,
@@ -60,9 +63,9 @@ def _make_project_solve(lam, trace_dim, gcv_grid):
 
 
 def _setup(A, B, b, x_true, x0, maxit, lam, trace_axis, gcv_grid):
-    A = as_operator(A)
-    B = as_operator(B)
-    b = torch.as_tensor(b)
+    b = as_vector(b)
+    A = as_operator(A, device=b.device)
+    B = as_operator(B, device=b.device)
     if x_true is not None:
         x_true = torch.as_tensor(x_true, dtype=b.dtype, device=b.device)
     if x0 is not None:

@@ -4,8 +4,8 @@ A solver result carries the full padded Krylov factorization, so it can be
 saved and a solve *continued* from it with a larger iteration budget:
 ``resume(save(run(maxit=k)), maxit=K)`` equals ``run(maxit=K)``.  The
 ``.npz`` layout (keys, shapes, dtypes) is the JAX package's, so either
-package loads the other's file.  The GKB state functions are not ported yet
-(ROADMAP queue 1, item 11).
+package loads the other's file, GMRES results and GKB (LSQR/LSMR) states
+alike.
 """
 
 from __future__ import annotations
@@ -73,31 +73,53 @@ def resume_fingerprint(x0, lam, tag: str = "", device=None):
     entry 1 encodes ``lam`` exactly (scalar value; None -> -1, "gcv" -> -2,
     "gcv-final" -> -3; a per-RHS vector -> a fixed-weight checksum), entry 2
     encodes ``tag``.  Built on ``device`` (default: ``x0``'s, else CPU).
+
+    The ``lam`` and ``tag`` slots are compared exactly, so they are HOST
+    values: computed with numpy in float32, the vector checksum with the
+    same weights in the same order whatever the device (a device dot product
+    may sum in another order), then moved.  Only the ``x0`` checksum is a
+    device sum; it is compared with a tolerance.  A ``lam`` tensor is read
+    on the host here, once per solve.
     """
     if device is None:
         device = x0.device if isinstance(x0, torch.Tensor) else "cpu"
     f32 = dict(dtype=torch.float32, device=device)
-    codes = {"gcv": -2.0, "gcv-final": -3.0}
-    if isinstance(lam, str):
-        lam_val = torch.tensor(codes.get(lam, -9.0), **f32)
-    elif lam is None:
-        lam_val = torch.tensor(-1.0, **f32)
-    else:
-        lam_arr = torch.as_tensor(lam, **f32).reshape(-1)
-        if lam_arr.shape[0] == 1:
-            lam_val = lam_arr[0]
-        else:
-            wl = torch.cos(torch.arange(lam_arr.shape[0], **f32) * 1.234) + 0.5
-            lam_val = torch.dot(lam_arr, wl)
-    tag_val = torch.tensor(float(sum((i + 1) * ord(c)
-                                     for i, c in enumerate(tag))), **f32)
+    lam_val, _ = _lam_slot(lam)
+    tag_val = np.float32(sum((i + 1) * ord(c) for i, c in enumerate(tag)))
     if x0 is None:
         xs = torch.tensor(0.0, **f32)
     else:
         x = torch.as_tensor(x0).reshape(-1).to(**f32)
         w = torch.cos(torch.arange(x.shape[0], **f32) * 0.7368) + 0.5
         xs = torch.dot(x, w)
-    return torch.stack([xs, lam_val, tag_val])
+    return torch.cat([xs.reshape(1), torch.tensor(
+        [float(lam_val), float(tag_val)], **f32)])
+
+
+def _lam_slot(lam):
+    """(value, slack) of the fingerprint's ``lam`` slot, float32 on the host.
+
+    A scalar, None or a mode string is encoded exactly (slack 0).  A per-RHS
+    vector is a fixed-weight checksum, the JAX package's weights in index
+    order; XLA and numpy round the cosines and order the sum differently, so
+    a checksum made by the other package is held to the rounding bound of a
+    float32 sum of these R terms, ``R eps sum|lam_i w_i|``."""
+    codes = {"gcv": -2.0, "gcv-final": -3.0}
+    if isinstance(lam, str):
+        return np.float32(codes.get(lam, -9.0)), 0.0
+    if lam is None:
+        return np.float32(-1.0), 0.0
+    if isinstance(lam, torch.Tensor):
+        lam = lam.detach().cpu().numpy()
+    lam_arr = np.asarray(lam, np.float32).reshape(-1)
+    if lam_arr.shape[0] == 1:
+        return lam_arr[0], 0.0
+    wl = (np.cos(np.arange(lam_arr.shape[0], dtype=np.float32)
+                 * np.float32(1.234)) + np.float32(0.5)).astype(np.float32)
+    terms = lam_arr * wl
+    slack = lam_arr.shape[0] * np.finfo(np.float32).eps * float(
+        np.abs(terms).sum())
+    return np.float32(terms.sum(dtype=np.float32)), slack
 
 
 def check_fingerprint(resume_from, x0, lam, tag: str = "") -> None:
@@ -116,9 +138,11 @@ def check_fingerprint(resume_from, x0, lam, tag: str = "") -> None:
         s = np.append(s, 0.0)
     # x0 slot is a lossy float checksum — tolerance; lam and tag slots are
     # exact encodings of the argument, so any difference means a genuinely
-    # different solve
+    # different solve (a per-RHS lam vector's checksum: see _lam_slot)
     x0_ok = np.allclose(s[0], e[0], rtol=1e-5, atol=1e-6, equal_nan=True)
-    if not (x0_ok and s[1] == e[1] and s[2] == e[2]):
+    lam_ok = s[1] == e[1] or abs(float(s[1]) - float(e[1])) <= \
+        _lam_slot(lam)[1]
+    if not (x0_ok and lam_ok and s[2] == e[2]):
         raise ValueError(
             f"resume fingerprint mismatch: checkpoint was created with "
             f"(x0, lam, tag) fingerprint {s.tolist()}, resume passed "
@@ -158,3 +182,38 @@ def pad_state(result, maxit: int):
         res_hist=pad(result.res_hist, (0, extra), value=float("nan")),
         Q=pad_cols(result.Q), H=pad(result.H, (0, extra, 0, extra)),
         IMG=pad_cols(result.IMG), S=pad_cols(result.S))
+
+
+def save_gkb_state(path: str, state) -> None:
+    """Serialize a :class:`GKBState` (LSQR/LSMR resume checkpoint) in the
+    JAX package's layout: the carry stored positionally as ``carry_{i}``
+    with ``carry_len``, absent entries (the reorth bases when
+    ``reorth=False``) skipped."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    d = {"res_hist": host(state.res_hist), "err_hist": host(state.err_hist),
+         "carry_len": np.int64(len(state.carry))}
+    if state.ar_hist is not None:
+        d["ar_hist"] = host(state.ar_hist)
+    if getattr(state, "fp", None) is not None:
+        d["fp"] = host(state.fp)
+    for i, c in enumerate(state.carry):
+        if c is not None:
+            d[f"carry_{i}"] = host(c)
+    np.savez_compressed(path, **d)
+
+
+def load_gkb_state(path: str, device="cuda"):
+    """Load a GKB state written by either package onto ``device`` (the card
+    by default; it raises without one, pass ``"cpu"``)."""
+    from hybrid_gmres_tpu_torch.utils.convert import gkb_state_from_numpy
+
+    with np.load(path) as z:
+        arrays = {name: z[name] for name in z.files}
+    n = int(arrays["carry_len"])
+    return gkb_state_from_numpy(
+        carry=tuple(arrays.get(f"carry_{i}") for i in range(n)),
+        res_hist=arrays["res_hist"], err_hist=arrays["err_hist"],
+        ar_hist=arrays.get("ar_hist"), fp=arrays.get("fp"),
+        device=require_device(device))

@@ -3,8 +3,10 @@
 :func:`operator_from_numpy` builds the port's :class:`BlockELLOperator` from
 the leaves of a JAX ``PallasBSROperator`` handed over as numpy arrays, so
 both packages compute with the very same panels;
-:func:`gmres_result_from_numpy` does the same for a solver result, so the
-port can resume a solve the JAX package began.  Nothing here imports JAX:
+:func:`gmres_result_from_numpy` does the same for a GMRES result, and
+:func:`gkb_state_from_numpy` / :func:`gkb_result_from_numpy` for the GKB
+(LSQR/LSMR) family, so the port can resume a solve the JAX package began.
+Nothing here imports JAX:
 the caller does ``np.asarray`` on each leaf.  These helpers exist for the
 parity tests, so ``device`` is a required keyword.
 """
@@ -17,7 +19,11 @@ import torch
 from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
 from hybrid_gmres_tpu_torch.ops.sparse import BucketedBlockELL
 from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
-from hybrid_gmres_tpu_torch.solvers.common import GMRESResult
+from hybrid_gmres_tpu_torch.solvers.common import (
+    GKBResult,
+    GKBState,
+    GMRESResult,
+)
 
 
 def bell_from_numpy(buckets, inv_perm, shape, ncb, packed4=False, *,
@@ -76,3 +82,39 @@ def gmres_result_from_numpy(result, *, device) -> GMRESResult:
     if out["active"] is not None:
         out["active"] = out["active"].to(torch.bool)
     return GMRESResult(**out)
+
+
+def _leaf(val, device):
+    """One array of a state: dtype kept, except that integers become int32
+    (``niters``) as the port's solvers produce them; bools stay bool."""
+    if val is None:
+        return None
+    t = torch.as_tensor(np.array(val), device=device)
+    if not (t.dtype.is_floating_point or t.dtype == torch.bool):
+        t = t.to(torch.int32)
+    return t
+
+
+def gkb_state_from_numpy(state=None, *, device, **fields) -> GKBState:
+    """The port's ``GKBState`` from a JAX one, single-RHS or batched.
+
+    ``state``: any object with the fields of ``GKBState`` as arrays that
+    ``np.asarray`` takes (the JAX NamedTuple itself will do), or give the
+    fields as keywords.  The carry keeps its order, shapes and ``None``
+    entries."""
+    if state is not None:
+        fields = {name: getattr(state, name, None)
+                  for name in GKBState._fields}
+    return GKBState(
+        carry=tuple(_leaf(c, device) for c in fields["carry"]),
+        **{name: _leaf(fields.get(name), device)
+           for name in GKBState._fields if name != "carry"})
+
+
+def gkb_result_from_numpy(result, *, device) -> GKBResult:
+    """The port's ``GKBResult`` from a JAX one (its ``state`` included)."""
+    out = {name: _leaf(getattr(result, name, None), device)
+           for name in GKBResult._fields if name != "state"}
+    state = getattr(result, "state", None)
+    return GKBResult(state=None if state is None else gkb_state_from_numpy(
+        state, device=device), **out)

@@ -4,9 +4,11 @@
     python3 scripts_torch/profile_solve.py
 
 Builds the bench scenario of ``chip_smoke.py`` at n=64 and n=128 (int8 Morton
-block-ELL operators, hybrid BA-GMRES at maxit=100, lam=1e-2, fused
-residual) in three modes — the single-RHS solve, and the serving batch of
-R=8 sinograms (noise seeds 0..7) with in-loop and with deferred histories —
+block-ELL operators, forward panels only, maxit=100) in five modes — hybrid
+BA-GMRES (lam=1e-2, fused residual) as the single-RHS solve and as the
+serving batch of R=8 sinograms (noise seeds 0..7) with in-loop and with
+deferred histories, and the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
+(kernels K1 + K3 and K2 + K4) —
 and times 5 solves of each after one warm-up, all before the first profiler
 session (the profiler slows the host loop after it, too).  Then it runs one
 solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -43,6 +46,7 @@ import chip_smoke  # noqa: E402  (imports neither torch nor the port)
 KINDS = (
     ("K1 bucket_matvec", ("bucket_matvec",)),
     ("K2 bucket_matmat", ("bucket_matmat",)),
+    ("K3/K4 finishing pass", ("bucket_rmat_finish",)),
     ("Cholesky", ("potrf", "getrf", "cholesky")),
     ("triangular solves", ("trsm", "trsv", "triangular")),
     ("cuBLAS gemv/gemm/dot", ("gemv", "gemm", "dot_kernel", "dot")),
@@ -58,6 +62,10 @@ def kind_of(ev):
     if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
         return "memcpy/memset"
     name = ev.get("name", "").lower()
+    if "bucket_rmat_kernel" in name:
+        # one template for both: the last argument is the tile width
+        return ("K3 bucket_rmatvec" if re.search(r",\s*1>", name)
+                else "K4 bucket_rmatmat")
     for kind, keys in KINDS:
         if any(k in name for k in keys):
             return kind
@@ -122,6 +130,12 @@ def card():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def gkb_run(name, P, b):
+    fn, kw = chip_smoke.gkb_solver(name)
+    return partial(fn, P.A_op, b, P.x_true, tol=0.0, maxit=chip_smoke.MAXIT,
+                   **kw)
+
+
 def main():
     import torch
 
@@ -139,7 +153,9 @@ def main():
                 ("batched R=8 in-loop",
                  partial(chip_smoke.solve_batched, P, b8, False)),
                 ("batched R=8 deferred",
-                 partial(chip_smoke.solve_batched, P, b8, True))):
+                 partial(chip_smoke.solve_batched, P, b8, True)),
+                ("lsqr", gkb_run("lsqr", P, P.b)),
+                ("lsqr_batched R=8", gkb_run("lsqr_batched", P, b8))):
             runs.append((n, mode, run, chip_smoke.per_call_ms(run, reps=5),
                          P.info))
     for run in runs:

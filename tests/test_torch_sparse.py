@@ -1,4 +1,4 @@
-"""PyTorch port: block-ELL packer and the K1/K2 module against the JAX package.
+"""PyTorch port: block-ELL packer and the K1-K4 module against the JAX package.
 
 The same numpy inputs go through both packages.  The JAX operators run their
 Pallas kernels in interpret mode on the CPU; the port's wrapper takes its
@@ -188,20 +188,23 @@ def test_rmatvec_without_adjoint_panel_plain_matches_jax_k3():
 
 
 def test_unported_kernels_raise_on_a_device_tensor():
-    """K3/K4 are not ported: a non-CPU tensor raises, naming the kernel (the
-    meta device stands in for CUDA here).  K1 and K2 are ported and take
-    only CPU and CUDA tensors: they raise on any other device, and never
-    fall back to their plain versions."""
+    """All four kernels are ported and take only CPU and CUDA tensors: they
+    raise on any other device (the meta device stands in here) and never
+    fall back to their plain versions.  What is still not ported (int4
+    panels) raises ``NotImplementedError`` naming its queue item."""
     op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
                                          with_adjoint=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        op.rmatvec(torch.zeros(300, device="meta"))
-    with pytest.raises(ValueError, match="bucket_matmat: unsupported device"):
-        op.matmat(torch.zeros((200, 2), device="meta"))
-    with pytest.raises(ValueError, match="bucket_matvec: unsupported device"):
-        op.matvec(torch.zeros(200, device="meta"))
-    with pytest.raises(NotImplementedError, match="K4"):
-        op.rmatmat(torch.zeros((300, 2), device="meta"))
+    for name, call in (
+            ("bucket_rmatvec", lambda: op.rmatvec(torch.zeros(300,
+                                                              device="meta"))),
+            ("bucket_matmat", lambda: op.matmat(torch.zeros((200, 2),
+                                                            device="meta"))),
+            ("bucket_matvec", lambda: op.matvec(torch.zeros(200,
+                                                            device="meta"))),
+            ("bucket_rmatmat", lambda: op.rmatmat(torch.zeros(
+                (300, 2), device="meta")))):
+        with pytest.raises(ValueError, match=f"{name}: unsupported device"):
+            call()
     with pytest.raises(NotImplementedError, match="int4"):
         tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
                                         dtype="int4", device="cpu")
@@ -332,7 +335,9 @@ def test_k2_layout_walk_matches_plain():
 def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     from hybrid_gmres_tpu_torch.ops import _build
     from hybrid_gmres_tpu_torch.solvers.batched import ba_gmres_batched
+    from hybrid_gmres_tpu_torch.solvers.gkb_batched import lsqr_batched
     from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
+    from hybrid_gmres_tpu_torch.solvers.lsqr import lsqr
 
     def boom(*a, **k):
         raise AssertionError("CPU path loaded the CUDA kernel library")
@@ -343,7 +348,9 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
                                         with_adjoint=False, device="cpu")
     B = tspmv.BlockELLOperator.from_csr(csr.T.tocsr(), dtype="int8",
                                         with_adjoint=False, device="cpu")
-    before = tspmv.bucket_matvec.launches, tspmv.bucket_matmat.launches
+    kernels = (tspmv.bucket_matvec, tspmv.bucket_matmat,
+               tspmv.bucket_rmatvec, tspmv.bucket_rmatmat)
+    before = [k.launches for k in kernels]
     rng = np.random.default_rng(4)
     b = torch.from_numpy(rng.standard_normal(400))
     r = ba_gmres(A, B, b.float(), tol=0.0, maxit=5, lam=1e-2,
@@ -352,6 +359,154 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     rb = ba_gmres_batched(A, B, torch.from_numpy(
         rng.standard_normal((400, 3))).float(), tol=0.0, maxit=5, lam=1e-2)
     assert torch.isfinite(rb.res_hist).all()
-    assert (tspmv.bucket_matvec.launches,
-            tspmv.bucket_matmat.launches) == before
+    # the GKB solvers reach K3/K4's wrappers (forward panels only)
+    rg = lsqr(A, b.float(), tol=0.0, maxit=5)
+    rgb = lsqr_batched(A, torch.from_numpy(
+        rng.standard_normal((400, 3))).float(), maxit=5)
+    assert torch.isfinite(rg.res_hist).all()
+    assert torch.isfinite(rgb.res_hist).all()
+    assert [k.launches for k in kernels] == before
     assert not _build._LIBS
+
+
+def _brute_force_index(bell):
+    """Block column -> [(flat block index, original block-row), ...] by
+    walking every slot of every position in flat order."""
+    bcols = bell.bcols_flat.numpy()
+    by_col = {c: [] for c in range(bell.ncb)}
+    for p in range(bell.pos_row.shape[0]):
+        row = int(bell.pos_row[p])
+        if row < 0:
+            continue
+        off = int(bell.pos_off[p])
+        for j in range(int(bell.pos_cnt[p])):
+            by_col[int(bcols[off + j])].append((off + j, row))
+    return by_col
+
+
+@pytest.mark.parametrize("seg_target", [1024, 16])
+@pytest.mark.parametrize("block", [(32, 128), (8, 128)])
+def test_transposed_index_is_a_transpose_of_bcols(block, seg_target,
+                                                  monkeypatch):
+    """The pack-time block-column index against a brute-force transpose of
+    ``bcols``: every live block listed once, under its own column, in
+    ascending flat order, with its block-row; segments tile each column's
+    list in order, none longer than ``seg_len`` or spanning two columns.
+    ``seg_target=16`` forces segments of several blocks at this size."""
+    monkeypatch.setattr(tsparse, "SEG_TARGET", seg_target)
+    bell = tsparse.bucketed_block_ell_from_csr(
+        _random_csr(m=1001, n=650), block=block, n_buckets=4, row_group=1,
+        device="cpu")
+    want = _brute_force_index(bell)
+    col_blk, col_row = bell.col_blk.numpy(), bell.col_row.numpy()
+    seg_off, col_seg = bell.seg_off.numpy(), bell.col_seg.numpy()
+    assert col_blk.dtype == col_row.dtype == seg_off.dtype == np.int32
+    assert len(col_blk) == int(bell.pos_cnt[bell.pos_row >= 0].sum())
+    assert col_seg[0] == 0 and col_seg[-1] == len(seg_off) - 1
+    assert seg_off[0] == 0 and seg_off[-1] == len(col_blk)
+    assert (np.diff(seg_off) > 0).all()
+    assert np.diff(seg_off).max() == bell.seg_len <= tsparse.SEG_MAX
+    if seg_target == 16:
+        assert bell.seg_len > 1
+    for c in range(bell.ncb):
+        lo, hi = seg_off[col_seg[c]], seg_off[col_seg[c + 1]]
+        assert list(zip(col_blk[lo:hi], col_row[lo:hi])) == want[c]
+        # whole segments except the column's last
+        assert (np.diff(seg_off[col_seg[c]:col_seg[c + 1] + 1])[:-1]
+                == bell.seg_len).all()
+
+
+@pytest.mark.parametrize("block,dtype,n_buckets,row_group", [
+    ((32, 128), "float32", 4, 2), ((32, 128), "bfloat16", 4, 2),
+    ((32, 128), "int8", 4, 2), ((8, 128), "float32", 4, 2),
+    ((8, 128), "bfloat16", 4, 2), ((8, 128), "int8", 4, 2),
+    ((32, 128), "int8", 1, 1), ((8, 128), "float32", 8, 1)])
+def test_k3_k4_plain_match_jax_interpret_kernels(block, dtype, n_buckets,
+                                                 row_group):
+    """K3's and K4's plain versions against the JAX transposed kernels in
+    interpret mode on forward panels only (ragged m=700, n=500; one to
+    eight buckets), against ``A^T u`` from scipy with the matrix the panel
+    holds, and K4's columns against K3 (rtol 1e-5 of the largest entry: the
+    same stored values, float32 accumulation in another order).  R=5 fills
+    no tile."""
+    csr = _random_csr(m=700, n=500)
+    jop = jspmv.PallasBSROperator.from_csr(
+        csr, block=block, dtype=jnp.dtype(dtype), n_buckets=n_buckets,
+        with_adjoint=False, interpret=True, row_group=row_group)
+    op = _convert(jop)
+    assert op.adj is None
+    rng = np.random.default_rng(8)
+    U = rng.standard_normal((csr.shape[0], 5)).astype(np.float32)
+    z = op.rmatvec(torch.from_numpy(U[:, 0]))
+    Z = op.rmatmat(torch.from_numpy(U))
+    assert z.shape == (500,) and Z.shape == (500, 5)
+    _close(z.numpy(), jop.rmatvec(jnp.asarray(U[:, 0])))
+    _close(Z.numpy(), jop.rmatmat(jnp.asarray(U)))
+    for j in range(5):
+        _close(Z[:, j].numpy(), op.rmatvec(torch.from_numpy(U[:, j])).numpy())
+    # the column-major layout of the batched solvers, and float64 columns
+    Ut = torch.from_numpy(np.ascontiguousarray(U.T)).T
+    np.testing.assert_array_equal(op.rmatmat(Ut).numpy(), Z.numpy())
+    Z64 = op.rmatmat(torch.from_numpy(U.astype(np.float64)))
+    assert Z64.dtype == torch.float64
+    _close(Z64.numpy(), Z.numpy())
+    # the matrix the panel holds: diag(s) Q for int8, the rounded values
+    # for bf16 (8 significant bits: 2^-8 of sum |a u|), A itself for f32
+    if dtype == "int8":
+        q, s = tspmv._row_quantize_csr(csr)
+        held = sp.diags(s.astype(np.float64)) @ q
+        _close(Z.numpy(), held.T @ U.astype(np.float64))
+    elif dtype == "float32":
+        _close(Z.numpy(), csr.T @ U.astype(np.float64))
+    else:
+        bound = 2.0 ** -8 * (abs(csr).T @ np.abs(U).astype(np.float64))
+        assert (np.abs(Z.numpy() - csr.T @ U.astype(np.float64))
+                <= bound + 1e-6).all()
+
+
+@pytest.mark.parametrize("block", [(32, 128), (8, 128)])
+def test_k3_k4_index_walk_matches_plain(block, monkeypatch):
+    """Emulate the transposed kernels' indexing in numpy (a segment at a
+    time: the staged ``scale * u`` of its block-rows with rows >= m read as
+    zero, U read through its strides in tiles of 8 columns, the blocks in
+    list order; then the column's partials summed in segment order and rows
+    >= n dropped) and check it against the plain versions."""
+    monkeypatch.setattr(tsparse, "SEG_TARGET", 16)
+    csr_q, s = tspmv._row_quantize_csr(_random_csr(m=1001, n=650))
+    bell = tsparse.bucketed_block_ell_from_csr(
+        csr_q, block=block, dtype=np.int8, n_buckets=4, row_group=1,
+        device="cpu")
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    R = 11
+    U = np.random.default_rng(9).standard_normal((m, R)).astype(np.float32)
+    want = tspmv.bucket_rmatmat_plain(bell, torch.from_numpy(U),
+                                      torch.from_numpy(s)).numpy()
+    blocks = bell.blocks_flat.numpy().astype(np.float32)
+    col_blk, col_row = bell.col_blk.numpy(), bell.col_row.numpy()
+    seg_off, col_seg = bell.seg_off.numpy(), bell.col_seg.numpy()
+    n_seg = len(seg_off) - 1
+    for us in (U, np.ascontiguousarray(U.T).T):
+        ldm, ldr = (st // 4 for st in us.strides)
+        buf = (us.base if us.base is not None else us).reshape(-1)
+        part = np.full((n_seg, R, bc), np.nan, np.float32)
+        for r0 in range(0, R, 8):
+            rc = min(8, R - r0)
+            for sg in range(n_seg):
+                ent = np.arange(seg_off[sg], seg_off[sg + 1])
+                rows = col_row[ent][:, None] * br + np.arange(br)
+                idx = (np.minimum(rows, m - 1)[..., None] * ldm
+                       + (r0 + np.arange(rc)) * ldr)
+                su = np.where((rows < m)[..., None],
+                              buf[idx] * s[np.minimum(rows, m - 1)][..., None],
+                              0.0)                       # (ent, br, rc)
+                part[sg, r0:r0 + rc] = np.einsum(
+                    "erc,erj->jc", blocks[col_blk[ent]], su)
+        assert np.isfinite(part).all()        # every partial written once
+        Y = np.zeros((bell.ncb * bc, R), np.float32)
+        for c in range(bell.ncb):
+            Y[c * bc:(c + 1) * bc] = part[col_seg[c]:col_seg[c + 1]].sum(
+                axis=0).T
+        _close(Y[:n], want)
+        _close(Y[:n, 0], tspmv.bucket_rmatvec_plain(
+            bell, torch.from_numpy(U[:, 0]), torch.from_numpy(s)).numpy())
