@@ -38,6 +38,8 @@ LIBRARIES = {
         "bucket_rmatmat": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                            _VP, _VP, _I, _I, _I, _I, _I, _I, _I64, _I64,
                            _I64, _I64, _VP]},
+    "row_spmv": {"row_spmv": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                              _VP, _I, _I, _I, _VP]},
 }
 _LOCK = threading.Lock()
 _LIBS: dict = {}

@@ -35,12 +35,19 @@ this same panel), see :func:`_transposed_index`:
 The index is a function of the panel alone, so the order of every sum in the
 transposed products is fixed at pack time.
 
+Beside the panel, :class:`RowPacked` is the compact row format of the
+single-RHS products (``csrc/row_spmv.cu``), built by
+:func:`row_packed_from_bell` from a panel's live blocks, so both forms hold
+the same stored values: the nonzero entries only, in the panel's storage
+type, with 16-bit column indices where the columns allow.
+
 Packed int4 nibble pairs (``packed4``) are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -211,6 +218,228 @@ def _transposed_index(bcols_flat, pos_off, pos_cnt, pos_row, ncb):
     i32 = np.int32
     return (flat[order].astype(i32), rows[order].astype(i32),
             seg_off.astype(i32), col_seg.astype(i32), seg_len)
+
+
+# The row-packed form.  A row is cut into vectors of VEC entries (one load
+# of values, one or two 16-byte loads of indices) and padded to whole
+# vectors.  Each row is summed by a group of ``lanes`` threads, chosen per
+# form so that an average row gives each lane VECS_PER_LANE vectors; a row
+# takes at most one thread block of the kernel (MAX_LANES threads).  Rows are
+# sorted by length, longest first, inside windows of SIGMA rows (SELL-C-sigma
+# style): neighbouring rows stay neighbours, and the rows that share a warp
+# have about the same length.
+VEC = 8
+VECS_PER_LANE = 2
+MAX_LANES = 256
+SIGMA = 256
+U16_COLS = 65536      # most columns a 16-bit index can address
+
+
+@dataclass
+class RowPacked:
+    """A sparse matrix as padded, interleaved rows: the format of the
+    redesigned K1/K3 (``csrc/row_spmv.cu``).
+
+    Each row's entries have a pack order: the order of the source panel's
+    blocks (the panel's flat order for the transpose of a panel, ascending
+    block column otherwise), then ascending position inside the block; in
+    the forward form of a panel that is ascending column order.  Runs of
+    entries from one source block are the row's segments: they share
+    ``col // group`` (``group``: the blocks' extent along this form's
+    columns).
+
+    Packed row ``r`` (original row ``row_map[r]``) owns vectors
+    ``vec_off[r] .. vec_off[r + 1] - 1``; vector ``k`` holds entries
+    ``vals[k * VEC : (k + 1) * VEC]`` and their columns.  Lane ``l`` of the
+    row's group of ``lanes`` threads sums vectors ``l, l + lanes, ...`` of
+    the row.  Inside one step of the group (``r_t`` vectors, ``r_t`` =
+    ``lanes`` but on the last step), slot ``j`` of the step's ``l``-th
+    vector holds the row's entry ``t * lanes * VEC + j * r_t + l`` in pack
+    order (:func:`pack_positions`), so the lanes of a step gather
+    neighbouring entries together.  Padding entries close the pack order:
+    zero, in the row's last column (a column the row reads anyway).
+
+    ``cols`` is int16 holding unsigned 16-bit indices when the matrix has at
+    most 65536 columns (read it with ``& 0xFFFF``), int32 otherwise.  Build
+    with :func:`row_packed_from_bell`; the products are
+    ``ops.spmv_cuda.row_matvec`` / ``row_rmatvec``.
+    """
+
+    vals: torch.Tensor      # (vectors * VEC,) storage dtype
+    cols: torch.Tensor      # (vectors * VEC,) int16 (uint16 bits) or int32
+    vec_off: torch.Tensor   # (rows + 1,) int32: first vector of each row
+    row_map: torch.Tensor   # (rows,) int32: packed row -> original row
+    shape: tuple            # (rows, columns) of the matrix this form holds
+    lanes: int              # threads per row, a power of two
+    live: int               # stored nonzeros; the rest is padding
+    group: int              # source blocks' extent along the columns
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def wide(self):
+        """True when the column indices are 32-bit."""
+        return self.cols.dtype == torch.int32
+
+    @property
+    def fill(self):
+        """Share of the stored entries that are nonzeros, not padding."""
+        return self.live / max(self.vals.numel(), 1)
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in
+                   (self.vals, self.cols, self.vec_off, self.row_map))
+
+    def col_index(self):
+        """The column indices as int64 (for the plain version)."""
+        c = self.cols.to(torch.int64)
+        return c if self.wide else c & 0xFFFF
+
+    @cached_property
+    def sum_order(self):
+        """The order of the plain version's fixed-order sum, worked out on
+        first use and kept: ``(src, cols, seg_steps, row_steps, rows)``.
+        ``src`` and ``cols`` (int64) list every stored entry in pack order,
+        row after row.  The segments (runs of one row's entries from one
+        source block) are chained rank by rank: step ``i`` of ``seg_steps``
+        is ``(entries, their segments)`` for the entries of rank ``i``.
+        ``row_steps`` then adds each row's segments in order the same way,
+        into the rows ``rows`` (packed rows that hold entries)."""
+        vec_row, p = pack_positions(self.vec_off, self.lanes)
+        pack = (self.vec_off[vec_row].long()[:, None] * VEC + p).reshape(-1)
+        src = torch.empty_like(pack)
+        src[pack] = torch.arange(pack.shape[0], device=pack.device)
+        cols = self.col_index()[src]
+        row_of = vec_row.repeat_interleave(VEC)[src]
+        row_start = torch.ones_like(row_of, dtype=torch.bool)
+        row_start[1:] = row_of[1:] != row_of[:-1]
+        seg_start = row_start.clone()
+        block = cols // self.group
+        seg_start[1:] |= block[1:] != block[:-1]
+        return (src, cols, _rank_steps(seg_start),
+                _rank_steps(row_start[seg_start]), row_of[row_start])
+
+
+def _rank_steps(starts):
+    """Runs of consecutive items (a run begins where ``starts`` is True),
+    item by rank inside the runs: ``[(items, their runs), ...]``, one pair
+    per rank."""
+    pos = torch.arange(starts.shape[0], device=starts.device)
+    run = torch.cumsum(starts, 0) - 1
+    rank = pos - pos[starts][run]
+    order = torch.argsort(rank, stable=True)
+    steps = []
+    for idx in torch.split(order, torch.bincount(rank).tolist()):
+        steps.append((idx, run[idx]))
+    return steps
+
+
+def _lanes_for(lengths):
+    mean = float(lengths.mean()) if len(lengths) else 0.0
+    want = max(1, int(np.ceil(mean / (VEC * VECS_PER_LANE))))
+    return min(MAX_LANES, 1 << (want - 1).bit_length())
+
+
+def pack_positions(vec_off, lanes):
+    """The interleaving of a form with row offsets ``vec_off`` (in vectors)
+    and ``lanes`` lanes per row: for every stored entry (shape (vectors,
+    VEC)), its packed row and its position in that row's pack order.  Lane
+    ``l`` of step ``t`` of a row (``r_t`` vectors in the step) holds entry
+    ``t * lanes * VEC + j * r_t + l`` in its slot ``j``."""
+    nv = (vec_off[1:] - vec_off[:-1]).long()
+    vec_row = torch.repeat_interleave(
+        torch.arange(nv.shape[0], device=nv.device), nv)
+    k = torch.arange(int(vec_off[-1]), device=nv.device) - \
+        vec_off[vec_row].long()
+    t, lane = k // lanes, k % lanes
+    r_t = torch.clamp(nv[vec_row] - t * lanes, max=lanes)
+    p = (t * lanes * VEC + lane)[:, None] + \
+        torch.arange(VEC, device=nv.device) * r_t[:, None]
+    return vec_row, p
+
+
+def _pack_rows(row, key, col, vals, nrows, ncols, group, device):
+    """The row-packed form of the entries ``(row[i], col[i], vals[i])``
+    (numpy int64 rows, pack-order keys and columns, a 1-D torch tensor of
+    values, each (row, column) at most once); each row's pack order is
+    ascending ``key``."""
+    order = np.argsort(row * (int(key.max(initial=0)) + 1) + key,
+                       kind="stable")
+    row, col = row[order], col[order]
+    vals = vals[torch.from_numpy(order)]
+    lens = np.bincount(row, minlength=nrows).astype(np.int64)
+    start = np.cumsum(lens) - lens
+    row_map = np.lexsort((-lens, np.arange(nrows) // SIGMA))
+    plen = lens[row_map]
+    nv = -(-plen // VEC)
+    vec_off = np.concatenate([[0], np.cumsum(nv)]).astype(np.int64)
+    if vec_off[-1] >= 2 ** 31:
+        raise ValueError("row-packed form: more than 2^31 vectors")
+    lanes = _lanes_for(plen)
+    vec_row, p = (a.numpy() for a in pack_positions(
+        torch.from_numpy(vec_off), lanes))
+    plen_v = plen[vec_row][:, None]
+    live = p < plen_v
+    src = (start[row_map[vec_row]][:, None]
+           + np.minimum(p, plen_v - 1)).reshape(-1)
+    live = torch.from_numpy(live.reshape(-1))
+    packed_vals = torch.where(live, vals[torch.from_numpy(src)],
+                              torch.zeros((), dtype=vals.dtype))
+    cols = col[src]
+    cols = (cols.astype(np.uint16).view(np.int16) if ncols <= U16_COLS
+            else cols.astype(np.int32))
+    return RowPacked(
+        vals=packed_vals.to(device),
+        cols=torch.from_numpy(cols).to(device),
+        vec_off=torch.from_numpy(vec_off.astype(np.int32)).to(device),
+        row_map=torch.from_numpy(row_map.astype(np.int32)).to(device),
+        shape=(int(nrows), int(ncols)), lanes=lanes, live=int(len(row)),
+        group=int(group))
+
+
+def row_packed_from_bell(bell: BucketedBlockELL,
+                         transpose: bool = False) -> RowPacked:
+    """The row-packed form of a panel (``transpose=True``: of its
+    transpose), built from its live blocks: the slots below each position's
+    ``pos_cnt`` on positions that are not bucket padding.  Entries that are
+    exactly zero are dropped; the values keep the panel's storage type, so
+    the form holds the panel's matrix exactly.  Each row's pack order
+    follows the panel's blocks (see :class:`RowPacked`).  Lives on the
+    panel's device."""
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    pos_off = bell.pos_off.cpu().numpy()
+    pos_cnt = bell.pos_cnt.cpu().numpy().astype(np.int64)
+    pos_row = bell.pos_row.cpu().numpy()
+    bcols = bell.bcols_flat.cpu().numpy().astype(np.int64)
+    live_pos = np.nonzero((pos_row >= 0) & (pos_cnt > 0))[0]
+    cnt = pos_cnt[live_pos]
+    first = np.cumsum(cnt) - cnt
+    slots = np.repeat(pos_off[live_pos], cnt) + (
+        np.arange(int(cnt.sum())) - np.repeat(first, cnt))
+    slot_row = np.full(bell.blocks_flat.shape[0], -1, np.int64)
+    slot_row[slots] = np.repeat(pos_row[live_pos], cnt)
+    blocks = bell.blocks_flat.cpu()
+    nz = (blocks != 0).numpy() & (slot_row >= 0)[:, None, None]
+    flat = np.flatnonzero(nz)
+    b, rc = np.divmod(flat, br * bc)
+    r, c = np.divmod(rc, bc)
+    row = slot_row[b] * br + r
+    col = bcols[b] * bc + c
+    keep = (row < m) & (col < n)
+    row, col = row[keep], col[keep]
+    vals = blocks.reshape(-1)[torch.from_numpy(flat[keep])]
+    if transpose:   # a column's entries by the panel's flat block order
+        return _pack_rows(col, b[keep] * br + r[keep], row, vals, n, m, br,
+                          bell.device)
+    return _pack_rows(row, col, col, vals, m, n, bc, bell.device)
 
 
 def _to_torch(arr, device, dtype):

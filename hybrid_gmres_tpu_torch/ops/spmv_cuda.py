@@ -20,6 +20,15 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     order, so the result is the same bits from run to run and column j of K4
     is K3 on column j); :func:`bucket_rmatvec_plain` and
     :func:`bucket_rmatmat_plain` on a CPU tensor.
+  * :func:`row_matvec` (K1 redesigned) and :func:`row_rmatvec` (K3
+    redesigned) are the single-RHS products that ``BlockELLOperator.matvec``
+    and ``.rmatvec`` run: one template in ``csrc/row_spmv.cu`` on the
+    row-packed form of ``ops/sparse.py`` (int8 values and 16- or 32-bit
+    column indices, 3-5 bytes per nonzero where the block-ELL panel reads
+    9-15), one launch per application, every sum in a fixed order;
+    :func:`row_matvec_plain` and :func:`row_rmatvec_plain` on a CPU tensor.
+    The block-ELL K1 and K3 stay as the direct counterparts of the Pallas
+    kernels on the same panel; no solver launches them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls back
 to the plain version.
@@ -34,8 +43,12 @@ import torch
 
 from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
 from hybrid_gmres_tpu_torch.ops.sparse import (
+    MAX_LANES,
+    VEC,
     BucketedBlockELL,
+    RowPacked,
     bucketed_block_ell_from_csr,
+    row_packed_from_bell,
 )
 from hybrid_gmres_tpu_torch.utils.device import require_device
 
@@ -372,6 +385,134 @@ def bucket_rmatmat(bell: BucketedBlockELL, U, scale=None):
 
 bucket_rmatmat.launches = 0
 
+# Stage the gathered vector in shared memory (persistent blocks) when it has
+# at most this many entries; otherwise gather through the read-only cache.
+STAGE_MAX_COLS = 16384
+
+
+def _row_plain(rp: RowPacked, v, in_scale, out_scale):
+    """Plain PyTorch ``diag(out_scale) Q (in_scale * v)`` on a row-packed
+    form: gather, then a fixed-order segment sum (``RowPacked.sum_order``).
+    Each row is read in its pack order (the source panel's block order); the
+    entries of one source block (a segment) are chained with fused
+    multiply-adds (float64 product and sum, one rounding to float32 each),
+    the segments of a row added in order, as the block-ELL kernels of both
+    packages sum a block and then the blocks.  Then the un-sort through
+    ``row_map`` and the row scale.  float32 results; returns ``v.dtype``."""
+    src, cols, seg_steps, row_steps, rows = rp.sum_order
+    v32 = v.to(torch.float32)
+    if in_scale is not None:
+        v32 = in_scale.to(torch.float32) * v32
+    prod = rp.vals[src].to(torch.float64) * v32.to(torch.float64)[cols]
+    seg = torch.zeros(seg_steps[0][0].shape[0] if seg_steps else 0,
+                      dtype=torch.float32, device=v.device)
+    for idx, at in seg_steps:
+        seg[at] = (seg[at].to(torch.float64) + prod[idx]).to(torch.float32)
+    runs = torch.zeros(rows.shape[0], dtype=torch.float32, device=v.device)
+    for idx, at in row_steps:
+        runs[at] = runs[at] + seg[idx]
+    y_packed = torch.zeros(rp.shape[0], dtype=torch.float32, device=v.device)
+    y_packed[rows] = runs
+    y = torch.empty_like(y_packed)
+    y[rp.row_map.long()] = y_packed
+    if out_scale is not None:
+        y = out_scale.to(torch.float32) * y
+    return y.to(v.dtype)
+
+
+def row_matvec_plain(rp: RowPacked, x, scale=None):
+    """Plain PyTorch ``y = diag(scale) Q x`` on the form of the forward
+    panel."""
+    return _row_plain(rp, x, None, scale)
+
+
+def row_rmatvec_plain(rp: RowPacked, u, scale=None, out_scale=None):
+    """Plain PyTorch ``y = diag(out_scale) Q^T (scale * u)`` on the form of
+    the transpose (or of an adjoint panel)."""
+    return _row_plain(rp, u, scale, out_scale)
+
+
+def _row_launch(name, rp: RowPacked, v, in_scale, out_scale, stage):
+    """Checks, then one launch of ``csrc/row_spmv.cu``; returns float32
+    ``y`` (rows,)."""
+    rows, ncols = rp.shape
+    code = _DTYPE_CODES.get(rp.dtype)
+    if code is None:
+        raise TypeError(f"{name}: no kernel for {rp.dtype} values")
+    if tuple(v.shape) != (ncols,):
+        raise ValueError(f"{name}: input has shape {tuple(v.shape)}, the "
+                         f"operator needs {(ncols,)}")
+    if rp.device != v.device:
+        raise ValueError(f"{name}: form on {rp.device}, input on {v.device}")
+    if not 1 <= rp.lanes <= MAX_LANES or rp.lanes & (rp.lanes - 1):
+        raise ValueError(f"{name}: {rp.lanes} lanes per row not supported")
+    if rp.vals.data_ptr() % 16 or rp.cols.data_ptr() % 16:
+        raise ValueError(f"{name}: values and indices must start on 16-byte "
+                         "boundaries")
+    scales = []
+    for s, size in ((in_scale, ncols), (out_scale, rows)):
+        if s is not None:
+            s = s.to(device=v.device, dtype=torch.float32).contiguous()
+            if s.shape != (size,):
+                raise ValueError(f"{name}: scale must have shape {(size,)}")
+        scales.append(s)
+    if stage is None:
+        stage = ncols <= STAGE_MAX_COLS
+    v32 = v.to(torch.float32).contiguous()
+    y = torch.empty(rows, dtype=torch.float32, device=v.device)
+    if rows:
+        from hybrid_gmres_tpu_torch.ops._build import load_library
+
+        lib = load_library("row_spmv")
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.row_spmv(
+            code, int(rp.wide), int(bool(stage)), rp.vals.data_ptr(),
+            rp.cols.data_ptr(), rp.vec_off.data_ptr(), rp.row_map.data_ptr(),
+            v32.data_ptr(), *(None if s is None else s.data_ptr()
+                              for s in scales),
+            y.data_ptr(), rows, ncols, rp.lanes, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    return y
+
+
+def row_matvec(rp: RowPacked, x, scale=None, stage=None):
+    """``y = diag(scale) Q x`` through the redesigned K1: the CUDA kernel
+    for a CUDA ``x``, the plain version for a CPU ``x``.  ``stage``: the
+    kernel's variant (True: x in shared memory, False: gathered through the
+    read-only cache; None: by size, see ``STAGE_MAX_COLS``); both give the
+    same bits.  One launch per call; ``row_matvec.launches`` counts them."""
+    if x.device.type == "cpu":
+        return row_matvec_plain(rp, x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"row_matvec: unsupported device {x.device}")
+    y = _row_launch("row_matvec", rp, x, None, scale, stage)
+    if rp.shape[0]:
+        row_matvec.launches += 1
+    return y.to(x.dtype)
+
+
+row_matvec.launches = 0
+
+
+def row_rmatvec(rp: RowPacked, u, scale=None, out_scale=None, stage=None):
+    """``y = diag(out_scale) Q^T (scale * u)`` through the redesigned K3 on
+    the form of the transpose: the CUDA kernel for a CUDA ``u`` (``scale``
+    gathered beside ``u`` inside it: one launch, no pre-scale), the plain
+    version for a CPU ``u``.  ``stage`` as in :func:`row_matvec`.
+    ``row_rmatvec.launches`` counts the launches."""
+    if u.device.type == "cpu":
+        return row_rmatvec_plain(rp, u, scale, out_scale)
+    if u.device.type != "cuda":
+        raise ValueError(f"row_rmatvec: unsupported device {u.device}")
+    y = _row_launch("row_rmatvec", rp, u, scale, out_scale, stage)
+    if rp.shape[0]:
+        row_rmatvec.launches += 1
+    return y.to(u.dtype)
+
+
+row_rmatvec.launches = 0
+
 
 def _row_quantize_csr(csr, qmax: int = 127):
     """Per-row symmetric integer quantization: ``A ~= diag(s) Q`` with
@@ -412,16 +553,19 @@ def _storage_dtype(dtype):
 
 
 class BlockELLOperator(LinearOperator):
-    """Sparse operator backed by the bucketed block-ELL SpMV (twin of
-    ``PallasBSROperator``).
+    """Sparse operator backed by the bucketed block-ELL panels (twin of
+    ``PallasBSROperator``) and, for its single-RHS products, two row-packed
+    forms built from them at construction (pack time, never in a solve).
 
-    ``rmatvec`` uses a separately packed panel of the transpose when one was
-    built (``with_adjoint=True``), applied through the same kernel K1
-    (``rmatmat``: K2).  Without one (``with_adjoint=False``, what
-    ``ct_gpu_operators`` builds by default: half the panel memory) it applies
-    the forward panel through the transposed kernels K3 (``rmatmat``: K4).
-    For a mismatched pair, pass B as its own operator — B is never derived
-    from A.
+    ``matvec`` runs the redesigned K1 (:func:`row_matvec`) on the form of
+    the forward panel; ``rmatvec`` the redesigned K3 (:func:`row_rmatvec`)
+    on ``adj_rows``: the form of the transpose of the forward panel, or of
+    the adjoint panel when one was built (``with_adjoint=True``).  The
+    multi-RHS products stay on the panels: ``matmat`` through K2; ``rmatmat``
+    through K2 on the adjoint panel when there is one, else through K4 on the
+    forward panel (``with_adjoint=False``, what ``ct_gpu_operators`` builds
+    by default: half the panel memory).  For a mismatched pair, pass B as
+    its own operator — B is never derived from A.
 
     ``dtype=int8`` stores per-row symmetrically quantized blocks with f32 row
     scales (``A ~= diag(s) Q``), applied in the kernel epilogue.  The adjoint
@@ -439,6 +583,9 @@ class BlockELLOperator(LinearOperator):
         self.fwd_scale = fwd_scale  # (m,) f32: y = scale * (Q x)
         self.adj_scale = adj_scale  # (n,) f32 for the transpose panel
         self.fro_sq = fro_sq        # ||A||_F^2 of the SOURCE matrix, f32
+        self.fwd_rows = row_packed_from_bell(fwd)
+        self.adj_rows = (row_packed_from_bell(fwd, transpose=True)
+                         if adj is None else row_packed_from_bell(adj))
 
     @classmethod
     def from_csr(cls, csr, block=(8, 128), dtype=torch.float32,
@@ -495,17 +642,12 @@ class BlockELLOperator(LinearOperator):
         return self.fwd.dtype
 
     def matvec(self, x):
-        return bucket_matvec(self.fwd, x, self.fwd_scale)
+        return row_matvec(self.fwd_rows, x, self.fwd_scale)
 
     def rmatvec(self, u):
-        if self.adj is None:
-            # A = diag(s) Q  =>  A^T u = Q^T (s * u): K3 scales u as it
-            # reads it, so the pair is an exact transpose by construction
-            return bucket_rmatvec(self.fwd, u, self.fwd_scale)
-        out_dtype = u.dtype
-        if self.fwd_scale is not None:
-            u = self.fwd_scale * u.to(torch.float32)
-        return bucket_matvec(self.adj, u, self.adj_scale).to(out_dtype)
+        # A = diag(s) Q  =>  A^T u = Q^T (s * u): the kernel scales u as it
+        # reads it, so the pair is an exact transpose by construction
+        return row_rmatvec(self.adj_rows, u, self.fwd_scale, self.adj_scale)
 
     def matmat(self, X):
         """Y (m, R) = A @ X (n, R) through K2: one panel read serves all

@@ -8,7 +8,7 @@ block-ELL operators, forward panels only, maxit=100) in five modes — hybrid
 BA-GMRES (lam=1e-2, fused residual) as the single-RHS solve and as the
 serving batch of R=8 sinograms (noise seeds 0..7) with in-loop and with
 deferred histories, and the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
-(kernels K1 + K3 and K2 + K4) —
+(the redesigned K1 + K3 on the row-packed forms, and K2 + K4) —
 and times 5 solves of each after one warm-up, all before the first profiler
 session (the profiler slows the host loop after it, too).  Then it runs one
 solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
@@ -62,6 +62,11 @@ def kind_of(ev):
     if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
         return "memcpy/memset"
     name = ev.get("name", "").lower()
+    if "row_spmv_kernel" in name:
+        # one template for both: the third argument is the gathered input
+        # scale, on in K3's mode (the CT operators are int8, scaled)
+        return ("K3 row_rmatvec" if re.search(
+            r"row_spmv_kernel<[^,]+,[^,]+,\s*true", name) else "K1 row_matvec")
     if "bucket_rmat_kernel" in name:
         # one template for both: the last argument is the tile width
         return ("K3 bucket_rmatvec" if re.search(r",\s*1>", name)

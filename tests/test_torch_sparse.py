@@ -188,19 +188,25 @@ def test_rmatvec_without_adjoint_panel_plain_matches_jax_k3():
 
 
 def test_unported_kernels_raise_on_a_device_tensor():
-    """All four kernels are ported and take only CPU and CUDA tensors: they
-    raise on any other device (the meta device stands in here) and never
-    fall back to their plain versions.  What is still not ported (int4
-    panels) raises ``NotImplementedError`` naming its queue item."""
+    """All four kernels are ported, K1 and K3 also in their redesign on the
+    row-packed form that the operator's single-RHS products run, and every
+    wrapper takes only CPU and CUDA tensors: they raise on any other device
+    (the meta device stands in here) and never fall back to their plain
+    versions.  What is still not ported (int4 panels) raises
+    ``NotImplementedError`` naming its queue item."""
     op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
                                          with_adjoint=False, device="cpu")
     for name, call in (
-            ("bucket_rmatvec", lambda: op.rmatvec(torch.zeros(300,
-                                                              device="meta"))),
+            ("row_rmatvec", lambda: op.rmatvec(torch.zeros(300,
+                                                           device="meta"))),
+            ("row_matvec", lambda: op.matvec(torch.zeros(200,
+                                                         device="meta"))),
+            ("bucket_rmatvec", lambda: tspmv.bucket_rmatvec(
+                op.fwd, torch.zeros(300, device="meta"))),
             ("bucket_matmat", lambda: op.matmat(torch.zeros((200, 2),
                                                             device="meta"))),
-            ("bucket_matvec", lambda: op.matvec(torch.zeros(200,
-                                                            device="meta"))),
+            ("bucket_matvec", lambda: tspmv.bucket_matvec(
+                op.fwd, torch.zeros(200, device="meta"))),
             ("bucket_rmatmat", lambda: op.rmatmat(torch.zeros(
                 (300, 2), device="meta")))):
         with pytest.raises(ValueError, match=f"{name}: unsupported device"):
@@ -349,7 +355,8 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     B = tspmv.BlockELLOperator.from_csr(csr.T.tocsr(), dtype="int8",
                                         with_adjoint=False, device="cpu")
     kernels = (tspmv.bucket_matvec, tspmv.bucket_matmat,
-               tspmv.bucket_rmatvec, tspmv.bucket_rmatmat)
+               tspmv.bucket_rmatvec, tspmv.bucket_rmatmat, tspmv.row_matvec,
+               tspmv.row_rmatvec)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(4)
     b = torch.from_numpy(rng.standard_normal(400))
@@ -359,7 +366,8 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     rb = ba_gmres_batched(A, B, torch.from_numpy(
         rng.standard_normal((400, 3))).float(), tol=0.0, maxit=5, lam=1e-2)
     assert torch.isfinite(rb.res_hist).all()
-    # the GKB solvers reach K3/K4's wrappers (forward panels only)
+    # the GKB solvers reach the redesigned K3's and K4's wrappers (forward
+    # panels only)
     rg = lsqr(A, b.float(), tol=0.0, maxit=5)
     rgb = lsqr_batched(A, torch.from_numpy(
         rng.standard_normal((400, 3))).float(), maxit=5)
