@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase (one H100, ~5 minutes)
+    python3 chip_smoke.py --kernels   # build and kernel phases only
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
-libraries, six kernels: the block-ELL K1-K4 and the redesigned K1 and K3 on
+libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
 the row-packed forms) and drives its three path families on the
 Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
 (360x360 rays):
@@ -13,18 +14,18 @@ Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
     residual), the scenario of ``bench.py``, through the redesigned K1
     (SpMV on the row-packed form);
   * the serving batch — ``ba_gmres_batched`` over R sinograms with per-RHS
-    noise seeds, the scenario of ``scripts/batched_bench.py``, through
-    kernel K2 (SpMM): in-loop and deferred histories, R=16 in two scans,
-    and a warm start from the previous frame;
+    noise seeds, the scenario of ``scripts/batched_bench.py``, through the
+    redesigned K2 (SpMM on the row-packed form): in-loop and deferred
+    histories, R=16 in two scans, and a warm start from the previous frame;
   * the GKB family on forward panels only — ``lsqr``, ``hybrid_lsqr``,
     ``lsmr``, ``hybrid_lsmr`` through the redesigned K1 and K3 (K3 on the
     row-packed transpose of the forward panel), and the serving twins
     ``lsqr_batched``, ``hybrid_lsqr_batched``, ``lsmr_batched`` (the
-    scenario of ``scripts/gkb_batched_bench.py``) through K2 and K4;
-    ``lsqr`` also with ``with_adjoint=True`` (K3 on the form of the adjoint
-    panel).
+    scenario of ``scripts/gkb_batched_bench.py``) through the redesigned K2
+    and K4; ``lsqr`` also with ``with_adjoint=True`` (K3 on the form of the
+    adjoint panel).
 
-The block-ELL K1 and K3 run on no path any more: they stay as the direct
+The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
 phase 3 beside the kernels that replaced them.
 
@@ -48,19 +49,25 @@ Phases:
      both variants (the same bits), <A x, u> against <x, A^T u>, timed in
      turns beside the block-ELL kernel and the library call against the
      bound from the form's live bytes, and on small f32/bf16/int8 forms
-     with 16- and 32-bit indices;
+     with 16- and 32-bit indices; the redesigned K2 and K4 the same way at
+     R in {1, 3, 5, 8, 12} in both layouts, column j bit-equal to the
+     redesigned K1 (K3) on column j, every gather and block size and
+     ``out=`` through a slab's strides giving the same bits, timed at R=8 in
+     the solvers' layout beside each of those variants, the block-ELL
+     kernel, 8 single-RHS launches and the library call;
   4. small reference: CT n=16 solves on the card against the same solves on
      the CPU (BA-GMRES single and batched; the seven GKB solvers, without
      and with ``reorth=True``);
   5. single solve at n=64: the launch counts reset before and read after
      (the redesigned K1 must give 201: r0 = B b, then A and B per
-     iteration; every other kernel 0), the quality gate on the min-over-k
-     error, the error history against a float64 host reference, it/s from
-     the median of 5 solves;
-  6. serving batch at n=64: launch counts (201 K2 launches per scan, one
-     more with a warm start, every other kernel none), shapes, every column
-     against the port's single-RHS solve of that column and against the
-     float64 host reference, deferred against in-loop, warm against cold,
+     iteration; every other kernel 0; counts are 8-tuples, ``LAUNCHES``),
+     the quality gate on the min-over-k error, the error history against a
+     float64 host reference, it/s from the median of 5 solves;
+  6. serving batch at n=64: launch counts (201 redesigned K2 launches per
+     scan, one more with a warm start, every other kernel none), shapes,
+     every column against the port's single-RHS solve of that column and
+     against the float64 host reference, deferred against in-loop, warm
+     against cold,
      it/s; and the GCV-selected lambda modes (``"gcv-final"``, ``"gcv"``),
      timed;
   7. the GKB path at n=64: each single-RHS solver with its launch counts
@@ -75,7 +82,8 @@ Phases:
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}``, the card's name and power limit, and the
-result ``{"ok": true, "device": {...}}``.
+result ``{"ok": true, "device": {...}}``.  ``--kernels`` stops after phase 3
+(at both sizes) and prints neither.
 """
 
 from __future__ import annotations
@@ -283,7 +291,7 @@ def phase_build():
         variants, entry = [], None
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
-                entry = ln.split("'")[1][:72]
+                entry = ln.split("'")[1][:110]
             elif "spill stores" in ln and entry:
                 variants.append(dict(entry=entry, spill=ln.split(":")[-1]
                                      .strip()))
@@ -328,17 +336,17 @@ def transposed_work(bell, R):
     return nbytes, 2 * live * br * bc * R
 
 
-def row_work(rp, n_scale):
-    """Bytes and flops of one product on a row-packed form: the live values
-    and their column indices, the row offsets and the row map, the input
-    vector, the row scale (``n_scale`` entries) and the output, each once.
-    The padding of the rows to whole vectors is not counted (it is reported
-    as ``fill``)."""
+def row_work(rp, n_scale, R=1):
+    """Bytes and flops of one product of R columns on a row-packed form: the
+    live values and their column indices, the row offsets and the row map,
+    the input (ncols, R), the row scale (``n_scale`` entries) and the output
+    (rows, R), each once.  The padding of the rows to whole vectors is not
+    counted (it is reported as ``fill``)."""
     rows, ncols = rp.shape
     nbytes = (rp.live * (rp.vals.element_size() + rp.cols.element_size())
-              + 4 * (rows + 1) + 4 * rows + 4 * ncols + 4 * n_scale
-              + 4 * rows)
-    return nbytes, 2 * rp.live
+              + 4 * (rows + 1) + 4 * rows + 4 * ncols * R + 4 * n_scale
+              + 4 * rows * R)
+    return nbytes, 2 * rp.live * R
 
 
 def bound(work):
@@ -387,8 +395,9 @@ def phase_ct_kernels(P):
     K2's columns against K1 and K4's against K3, all timed beside the
     library call, the adjoint-panel alternative and the bound; then the
     redesigned K1 and K3 on the row-packed forms of the same operators
-    (:func:`row_kernels`).  Returns the per-panel records of (K1, K2, K3,
-    K4, redesigned K1, redesigned K3)."""
+    (:func:`row_kernels`) and the redesigned K2 and K4
+    (:func:`row_mm_kernels`).  Returns the per-panel records of (K1, K2,
+    K3, K4, redesigned K1, redesigned K3, redesigned K2, redesigned K4)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
@@ -396,7 +405,8 @@ def phase_ct_kernels(P):
         bucket_matvec_plain)
 
     rng = np.random.default_rng(1)
-    recs1, recs2, recs3, recs4, recs1r, recs3r = [], [], [], [], [], []
+    recs1, recs2, recs3, recs4, recs1r, recs3r, recs2r, recs4r = (
+        [] for _ in range(8))
     for tag, op, adj_op, csr in (("A", P.A_op, P.A_adj, P.A_csr),
                                  ("B", P.B_op, P.B_adj, P.B_csr)):
         bell, scale = op.fwd, op.fwd_scale
@@ -481,7 +491,10 @@ def phase_ct_kernels(P):
         r1r, r3r = row_kernels(op, csr, common, rng)
         recs1r.append(r1r)
         recs3r.append(r3r)
-    return recs1, recs2, recs3, recs4, recs1r, recs3r
+        r2r, r4r = row_mm_kernels(op, csr, common, rng)
+        recs2r.append(r2r)
+        recs4r.append(r4r)
+    return recs1, recs2, recs3, recs4, recs1r, recs3r, recs2r, recs4r
 
 
 def row_kernels(op, csr, common, rng):
@@ -577,20 +590,177 @@ def row_kernels(op, csr, common, rng):
     return recs
 
 
+def variants_for(X):
+    """The variants a multi-RHS kernel can run on input ``X``, as
+    ``{"gather/threads": keywords}``: the gather through its strides and
+    after an interleaving copy always, packed as it is where it is
+    row-major on 16-byte rows, each at both block sizes."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import BLOCK_THREADS, _packable
+
+    gathers = ["strided", "copy"] + (["packed"] if _packable(X) else [])
+    return {f"{g}/{t}": dict(gather=g, threads=t) for g in gathers
+            for t in BLOCK_THREADS}
+
+
+def mm_sweep(rp, fn, plain, single, V, args, label, old=None, scale=None,
+             into=False):
+    """A multi-RHS kernel ``fn`` on form ``rp`` at R in {1, 3, 5, 8, 12},
+    row-major and in the batched solvers' layout (the first R columns of
+    ``V``): against its plain version (within KERNEL_RTOL) and the
+    block-ELL kernel ``old`` where given; column j against the single-RHS
+    kernel on column j, twice and, with ``into`` (K2), written through the
+    strides of a taller slab's rows, bit for bit; at R=8 also in every
+    variant (:func:`variants_for`).
+    Returns the worst
+    (relative error, absolute error, vs block-ELL, column difference,
+    run/gather/out= difference)."""
+    import torch
+
+    rows = rp.shape[0]
+    worst = abs_err = vs_old = col_diff = var_diff = 0.0
+    for R in (1, 3, 5, 8, 12):
+        VR = V[:, :R].contiguous()
+        want = plain(rp, VR, *args)
+        for layout in (VR, VR.T.contiguous().T):
+            got = fn(rp, layout, *args)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (rows, R) and
+                  bool(torch.isfinite(got).all()),
+                  f"{label} output not finite or misshaped at R={R}")
+            worst = max(worst, rel_err(got, want))
+            abs_err = max(abs_err, float((got - want).abs().max()))
+            if old is not None:
+                vs_old = max(vs_old, rel_err(got, old(layout, scale)))
+            col_diff = max(col_diff, max(float(
+                (got[:, j] - single(rp, layout[:, j].contiguous(),
+                                    *args)).abs().max()) for j in range(R)))
+            runs = [fn(rp, layout, *args)] + [
+                fn(rp, layout, *args, **kw)
+                for kw in (variants_for(layout).values() if R == 8
+                           else ())]
+            if into:
+                slab = torch.full((R, rows + 5), float("nan"), device="cuda")
+                fn(rp, layout, *args, out=slab[:, :rows].T)
+                check(bool(slab[:, rows:].isnan().all()),
+                      f"{label}: out= wrote past its rows")
+                runs.append(slab[:, :rows].T)
+            var_diff = max([var_diff] + [float((got - y).abs().max())
+                                         for y in runs])
+    torch.cuda.synchronize()
+    check(worst <= KERNEL_RTOL, f"{label} vs plain {worst:.3e}")
+    check(vs_old <= KERNEL_RTOL, f"{label} vs the block-ELL kernel "
+          f"{vs_old:.3e}")
+    check(col_diff == 0.0, f"{label}: a column differs from the single-RHS "
+          f"kernel on it by {col_diff:.3e}")
+    check(var_diff == 0.0, f"{label} differs between runs, variants or "
+          f"out= by {var_diff:.3e}")
+    return worst, abs_err, vs_old, col_diff, var_diff
+
+
+def row_mm_kernels(op, csr, common, rng):
+    """The redesigned K2 (``row_matmat``, ``diag(s) Q X`` on the form of the
+    forward panel) and K4 (``row_rmatmat``, ``Q^T (s U)`` on the form of its
+    transpose) on one CT operator, at R in {1, 3, 5, 8, 12} in the
+    row-major and the batched solvers' layout: each against its plain
+    version and the block-ELL kernel; column j against the redesigned K1
+    (K3) on column j, bit for bit; twice and in every gather and block size
+    (the same bits); K2 written through the strides of a taller slab's rows
+    (the same bits); ``<A X, U>`` against ``<X, A^T U>`` column by column;
+    the library call.  Timed at R=8 in the solvers' layout, in turns
+    (plain, kernel, kernel, plain), beside each variant, the block-ELL
+    kernel, eight launches of the single-RHS kernel and the library call,
+    against the bound from the form's live bytes.  Returns the records of
+    (K2, K4)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        _gather_for, _threads_for, bucket_matmat, bucket_rmatmat, row_matmat,
+        row_matmat_plain, row_matvec, row_rmatmat, row_rmatmat_plain,
+        row_rmatvec)
+
+    m, n = op.shape
+    scale, panel = op.fwd_scale, common["panel"]
+    Xall = torch.as_tensor(rng.standard_normal((n, 12)), dtype=torch.float32,
+                           device="cuda")
+    Uall = torch.as_tensor(rng.standard_normal((m, 12)), dtype=torch.float32,
+                           device="cuda")
+    recs, outs = [], []
+    for kernel, rp, fn, plain, single, old, V, lib, args in (
+            ("K2 redesigned", op.fwd_rows, row_matmat, row_matmat_plain,
+             row_matvec, partial(bucket_matmat, op.fwd), Xall,
+             library_csr(csr), (scale,)),
+            ("K4 redesigned", op.adj_rows, row_rmatmat, row_rmatmat_plain,
+             row_rmatvec, partial(bucket_rmatmat, op.fwd), Uall,
+             library_csr(csr, transpose=True), (scale, op.adj_scale))):
+        label = f"{panel}: {kernel}"
+        worst, abs_err, vs_old, col_diff, var_diff = mm_sweep(
+            rp, fn, plain, single, V, args, label, old=old, scale=scale,
+            into=kernel.startswith("K2"))
+        V8 = V[:, :8].contiguous()
+        Vt = V8.T.contiguous().T          # the batched solvers' layout
+        got8 = fn(rp, Vt, *args)
+        lib_diff = rel_err(lib @ V8, got8)
+        check(lib_diff <= LIBRARY_RTOL, f"{label} vs library {lib_diff:.3e}")
+        run_k = partial(fn, rp, Vt, *args)
+        run_p = partial(plain, rp, Vt, *args)
+        p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), \
+            time_ms(run_p, 10)
+        variant_ms = {name: time_ms(partial(fn, rp, Vt, *args, **kw))
+                      for name, kw in variants_for(Vt).items()}
+        variant_ms["packed, row-major input"] = time_ms(
+            partial(fn, rp, V8, *args, gather="packed"))
+
+        def run_singles():
+            for j in range(8):
+                single(rp, Vt[:, j], *args)
+
+        work = row_work(rp, m, R=8)
+        b_ms, b_by = bound([work])
+        gather = _gather_for(rp, Vt, scaled=kernel.startswith("K4"))
+        ms = (k1 + k2) / 2
+        rec = dict(
+            common, kernel=kernel, R=8, ms=ms, plain_ms=(p1 + p2) / 2,
+            library_ms=time_ms(lambda: lib @ Vt),
+            block_ell_ms=time_ms(partial(old, Vt, scale)),
+            single_x8_ms=time_ms(run_singles, 10), bound_ms=b_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms, work=work,
+            gather=gather, threads=_threads_for(rp, gather),
+            variant_ms=variant_ms,
+            max_abs_err=abs_err, max_rel_err=worst, vs_block_ell=vs_old,
+            column_vs_single_max_diff=col_diff,
+            repeat_variant_out_max_diff=var_diff,
+            library_max_rel_diff=lib_diff, form_shape=list(rp.shape),
+            lanes=rp.lanes, fill=rp.fill, live=rp.live,
+            index_bits=32 if rp.wide else 16)
+        recs.append(rec)
+        outs.append((V8, got8))
+    (X8, AX), (U8, ATU) = outs
+    gaps = ((torch.sum(AX * U8, 0) - torch.sum(X8 * ATU, 0)).abs()
+            / (torch.linalg.vector_norm(AX, dim=0)
+               * torch.linalg.vector_norm(U8, dim=0)))
+    gap = float(gaps.max())
+    check(gap <= ADJOINT_RTOL, f"{panel}: redesigned <A X, U> against "
+          f"<X, A^T U> per column: {gaps.tolist()}")
+    recs[1]["transpose_identity_gap"] = gap
+    for rec in recs:
+        say("kernel_vs_plain", **rec)
+    return recs
+
+
 def transposed_kernels(op, adj_op, csr, common, rng):
     """K3 and K4 on one CT panel: against their plain versions, K4's
     columns against K3 (exactly), K3 twice on the same input (the same
     bits), K3 against K1 on the adjoint panel of the same Q and the
     transpose identity <A x, u> = <x, A^T u> through ``matvec`` and K3
     (float32 rounding), the library call on the transposed CSR; times of
-    each, of the adjoint-panel alternative (the pre-scale and K1 on the
-    panel of Q^T; ``rmatmat`` of the ``with_adjoint=True`` operator: K2 on
-    it) and of eight K3 launches.  Returns the records of (K3, K4)."""
+    each, of the adjoint-panel alternative of the block-ELL path (the
+    pre-scale and K1, or K2, on the panel of Q^T) and of eight K3 launches.
+    Returns the records of (K3, K4)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        bucket_matvec, bucket_rmatmat, bucket_rmatmat_plain, bucket_rmatvec,
-        bucket_rmatvec_plain)
+        bucket_matmat, bucket_matvec, bucket_rmatmat, bucket_rmatmat_plain,
+        bucket_rmatvec, bucket_rmatvec_plain)
 
     bell, scale, panel = op.fwd, op.fwd_scale, common["panel"]
     m, n = op.shape
@@ -667,7 +837,9 @@ def transposed_kernels(op, adj_op, csr, common, rng):
         bell, U[:, j].contiguous(), scale)).abs().max())
         for j in range(8) for Z in (Z_k, Z_t))
     check(col == 0.0, f"{panel}: K4 column differs from K3 by {col:.3e}")
-    a4 = rel_err(adj_op.rmatmat(Ut), Z_k)
+    adjoint_k2 = partial(bucket_matmat, adj_op.adj, scale[:, None] * Ut,
+                         adj_op.adj_scale)
+    a4 = rel_err(adjoint_k2(), Z_k)
     check(a4 <= ADJOINT_RTOL, f"{panel}: K4 vs K2 on the adjoint panel "
           f"{a4:.3e}")
     l4 = rel_err(lib @ U, Z_k)
@@ -688,7 +860,7 @@ def transposed_kernels(op, adj_op, csr, common, rng):
         ms_row_major=time_ms(partial(bucket_rmatmat, bell, U, scale)),
         k3_x8_ms=time_ms(run_8k3, 10),
         library_ms=time_ms(lambda: lib @ U),
-        adjoint_panel_ms=time_ms(lambda: adj_op.rmatmat(Ut)),
+        adjoint_panel_ms=time_ms(adjoint_k2),
         bound_ms=b_ms, bound_by=b_by, work=w4,
         max_abs_err=float(max((Z_k - Z_p).abs().max(),
                               (Z_t - Z_p).abs().max())),
@@ -704,7 +876,7 @@ def phase_small_kernels(device="cuda"):
     R in {1, 5, 8, 12} in both layouts (12 = a full tile and a ragged one);
     K3/K4 on the forward panel, K4 at R in {1, 3, 5, 8, 12} in both layouts,
     its columns against K3 exactly, K3 twice for the same bits; the
-    redesigned K1/K3 on the operators with and without an adjoint panel
+    redesigned K1-K4 on the operators with and without an adjoint panel
     (:func:`row_checks`), and on matrices of 70000 columns and of 70000 rows
     (32-bit indices in the forward and in the transposed form)."""
     import scipy.sparse as sp
@@ -791,15 +963,15 @@ def phase_small_kernels(device="cuda"):
                 csr, block=block, dtype=dt, with_adjoint=False, device=device)
             for tag, o in (("with_adjoint", op), ("forward only", fwd_only)):
                 say("kernel_vs_plain_small", panel=f"{label} {tag}",
-                    **row_checks(o, X[:, 0], U[:, 0], f"{label} {tag}"))
+                    **row_checks(o, X, U, f"{label} {tag}"))
     for shape in ((600, 70000), (70000, 600)):
         wide = sp.random(*shape, density=5e-4, format="csr",
                          random_state=np.random.RandomState(3),
                          dtype=np.float64)
-        x = torch.as_tensor(rng.standard_normal(shape[1]),
-                            dtype=torch.float32, device=device)
-        u = torch.as_tensor(rng.standard_normal(shape[0]),
-                            dtype=torch.float32, device=device)
+        Xw = torch.as_tensor(rng.standard_normal((shape[1], 12)),
+                             dtype=torch.float32, device=device)
+        Uw = torch.as_tensor(rng.standard_normal((shape[0], 12)),
+                             dtype=torch.float32, device=device)
         for dt in (torch.float32, torch.bfloat16, torch.int8):
             op = BlockELLOperator.from_csr(wide, block=(8, 128), dtype=dt,
                                            with_adjoint=False, device=device)
@@ -809,19 +981,34 @@ def phase_small_kernels(device="cuda"):
                   f"{label}: index widths {op.fwd_rows.cols.dtype}, "
                   f"{op.adj_rows.cols.dtype}")
             say("kernel_vs_plain_small", panel=label,
-                **row_checks(op, x, u, label))
+                **row_checks(op, Xw, Uw, label))
 
 
-def row_checks(op, x, u, label):
-    """The redesigned K1 and K3 of ``op`` against their plain versions, each
-    run twice (the same bits) and in both variants where the vector fits in
-    shared memory (the same bits).  Returns the worst numbers."""
+def row_checks(op, X, U, label):
+    """The redesigned K1 and K3 of ``op`` against their plain versions on
+    the first columns of ``X`` and ``U``, each run twice (the same bits) and
+    in both variants where the vector fits in shared memory (the same bits);
+    the redesigned K2 and K4 on their columns (:func:`mm_sweep`).  Returns
+    the worst numbers."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        row_matvec, row_matvec_plain, row_rmatvec, row_rmatvec_plain)
+        row_matmat, row_matmat_plain, row_matvec, row_matvec_plain,
+        row_rmatmat, row_rmatmat_plain, row_rmatvec, row_rmatvec_plain)
 
+    x, u = X[:, 0].contiguous(), U[:, 0].contiguous()
     out = {}
+    for kernel, rp, fn, plain, single, V, args in (
+            ("k2r", op.fwd_rows, row_matmat, row_matmat_plain, row_matvec, X,
+             (op.fwd_scale,)),
+            ("k4r", op.adj_rows, row_rmatmat, row_rmatmat_plain, row_rmatvec,
+             U, (op.fwd_scale, op.adj_scale))):
+        worst, _, _, col, var = mm_sweep(rp, fn, plain, single, V, args,
+                                         f"{label}: redesigned {kernel}",
+                                         into=kernel == "k2r")
+        out.update({f"{kernel}_max_rel_err": worst,
+                    f"{kernel}_column_vs_single_max_diff": col,
+                    f"{kernel}_repeat_variant_out_max_diff": var})
     for kernel, rp, fn, plain, v, scales in (
             ("k1r", op.fwd_rows, row_matvec, row_matvec_plain, x,
              (op.fwd_scale,)),
@@ -983,9 +1170,9 @@ def gkb_launches(name, maxit):
     true-residual patch; hybrid LSQR and hybrid LSMR one per step for the
     true residual; LSMR a forward and a transposed one per step (true
     residual and ||A^T r||).  Single-RHS products run the redesigned K1/K3,
-    one launch each (the block-ELL K3's finishing pass is gone), with or
-    without an adjoint panel; the batched twins make the same calls through
-    K2/K4 (through K2 alone on an adjoint panel)."""
+    one launch each (the block-ELL K3's finishing pass is gone), the batched
+    twins make the same calls through the redesigned K2/K4; with or without
+    an adjoint panel."""
     base = name.replace("_batched", "")
     return {"lsqr": (maxit + 1, maxit + 1),
             "hybrid_lsqr": (2 * maxit, maxit + 1),
@@ -1010,14 +1197,15 @@ def host_reference_gkb(P, name, b, maxit=MAXIT):
 def kernel_wrappers():
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
         bucket_matmat, bucket_matvec, bucket_rmatmat, bucket_rmatvec,
-        row_matvec, row_rmatvec)
+        row_matmat, row_matvec, row_rmatmat, row_rmatvec)
 
     return (bucket_matvec, bucket_matmat, bucket_rmatvec, bucket_rmatmat,
-            row_matvec, row_rmatvec)
+            row_matvec, row_rmatvec, row_matmat, row_rmatmat)
 
 
-# the order of counts(): the block-ELL K1-K4, then the redesigned K1 and K3
-LAUNCHES = "(K1, K2, K3, K4, K1r, K3r)"
+# the order of counts(): the block-ELL K1-K4, then the redesigned K1, K3,
+# K2 and K4
+LAUNCHES = "(K1, K2, K3, K4, K1r, K3r, K2r, K4r)"
 
 
 def reset_counts():
@@ -1026,9 +1214,9 @@ def reset_counts():
 
 
 def counts():
-    """Launches of (K1, K2, K3, K4, K1r, K3r) since the last reset: the
-    block-ELL kernels, then the redesigned K1 and K3 (``row_matvec``,
-    ``row_rmatvec``)."""
+    """Launches of (K1, K2, K3, K4, K1r, K3r, K2r, K4r) since the last
+    reset: the block-ELL kernels, then the redesigned K1, K3, K2 and K4
+    (``row_matvec``, ``row_rmatvec``, ``row_matmat``, ``row_rmatmat``)."""
     return tuple(wrapper.launches for wrapper in kernel_wrappers())
 
 
@@ -1068,7 +1256,7 @@ def phase_main_path(P):
     res = r.res_hist.cpu().numpy()
     ms = per_call_ms(lambda: solve(P), reps=5)
     q1, med, q3 = (float(v) for v in np.percentile(ms, [25, 50, 75]))
-    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0)
+    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
     check(launched == want, f"n={n}: {LAUNCHES} launches {launched} in the "
           f"single solve, expected {want}")
     check(niters == MAXIT, f"n={n}: niters {niters} != {MAXIT}")
@@ -1085,7 +1273,7 @@ def phase_main_path(P):
     ref_diff, min_diff = held_to(err, err_ref, f"n={n}",
                                  "float64 host reference")
     say("main_path", **P.info, maxit=MAXIT, lam=LAM,
-        launches_k1_k2_k3_k4_k1r_k3r=launched, host_syncs=syncs.count,
+        launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched, host_syncs=syncs.count,
         first_solve_s=first_s,
         timed_solves=len(ms),
         solve_ms_median=med, solve_ms_q1=q1, solve_ms_q3=q3,
@@ -1101,8 +1289,9 @@ def phase_main_path(P):
 
 def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     """One batched solve with the launch counts reset before and read
-    after, and the checks every serving run gets: counts, niters, shapes,
-    finite histories."""
+    after, and the checks every serving run gets: counts (``expect_k2``
+    launches of the redesigned K2 and nothing else), niters, shapes, finite
+    histories.  Returns (result, the launches of counts())."""
     import torch
 
     m, nx = P.A_op.shape
@@ -1111,7 +1300,7 @@ def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     r = solve_batched(P, b, defer, x0=x0, **kw)
     torch.cuda.synchronize()
     launched = counts()
-    want = (0, expect_k2, 0, 0, 0, 0)
+    want = (0, 0, 0, 0, 0, 0, expect_k2, 0)
     check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
           f"expected {want}")
     check(r.niters.tolist() == [MAXIT] * R, f"{label}: niters "
@@ -1126,7 +1315,7 @@ def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     check(bool(torch.isfinite(r.err_hist).all() and
                torch.isfinite(r.res_hist).all() and
                torch.isfinite(r.x).all()), f"{label}: non-finite results")
-    return r, launched[1]
+    return r, launched
 
 
 def timed_batched(P, b, defer):
@@ -1161,8 +1350,8 @@ def phase_serving(P, single_its, ref0, full):
     """The serving batch at one size.  ``full``: every mode of the n=64
     scenario (in-loop, deferred, R=16, warm start, a float64 reference per
     column); otherwise R=8 deferred with the float64 reference of column 0
-    (``ref0``, the single solve's: seed 0 is column 0).  Returns the K2
-    launch count of the first counted solve (R=8 deferred)."""
+    (``ref0``, the single solve's: seed 0 is column 0).  Returns the
+    launches of counts() in the first counted solve (R=8 deferred)."""
     import torch
 
     n, R = P.n, 8
@@ -1174,8 +1363,8 @@ def phase_serving(P, single_its, ref0, full):
     out = dict(n=n, R=R, maxit=MAXIT, lam=LAM, chunk_rhs=8, gate=gate,
                single_rhs_iters_per_s=single_its)
 
-    r_def, k2_first = counted_batched(P, b8, True, cold,
-                                      f"n={n} R=8 deferred")
+    r_def, first = counted_batched(P, b8, True, cold,
+                                   f"n={n} R=8 deferred")
     err_def = r_def.err_hist.cpu().numpy()
     minima = err_def.min(axis=0)
     check(bool((minima <= gate).all()), f"n={n} serving: min-over-k errors "
@@ -1195,11 +1384,11 @@ def phase_serving(P, single_its, ref0, full):
     out["f64_ref_min_err"], out["f64_ref_s"] = ref_min, \
         time.perf_counter() - t0
     out["deferred"] = timed_batched(P, b8, True)
-    out["k2_launches"] = {"R=8 deferred": k2_first}
+    out["k2r_launches"] = {"R=8 deferred": first[6]}
 
     if full:
         r_in, k2 = counted_batched(P, b8, False, cold, f"n={n} R=8 in-loop")
-        out["k2_launches"]["R=8 in-loop"] = k2
+        out["k2r_launches"]["R=8 in-loop"] = k2[6]
         err_in = r_in.err_hist.cpu().numpy()
         for name, a, d in (("err", err_in, err_def),
                            ("res", r_in.res_hist.cpu().numpy(),
@@ -1214,7 +1403,7 @@ def phase_serving(P, single_its, ref0, full):
 
         r16, k2 = counted_batched(P, b_all, True, 2 * cold,
                                   f"n={n} R=16 deferred")
-        out["k2_launches"]["R=16 deferred"] = k2
+        out["k2r_launches"]["R=16 deferred"] = k2[6]
         gap = float((r16.err_hist[:REF_K, :R] - r_def.err_hist[:REF_K])
                     .abs().max())
         check(gap <= 1e-6, f"n={n}: the first scan of R=16 differs from the "
@@ -1239,7 +1428,8 @@ def phase_serving(P, single_its, ref0, full):
                                       f"n={n} frame 2 cold")
         r_warm, k2w = counted_batched(P, b2, False, cold + 1,
                                       f"n={n} frame 2 warm", x0=x_prev)
-        out["k2_launches"].update({"frame 2 cold": k2c, "frame 2 warm": k2w})
+        out["k2r_launches"].update({"frame 2 cold": k2c[6],
+                                    "frame 2 warm": k2w[6]})
         m_cold = r_cold.err_hist.min(dim=0).values
         m_warm = r_warm.err_hist.min(dim=0).values
         check(bool((m_warm <= WARM_BAND * m_cold).all()),
@@ -1271,7 +1461,7 @@ def phase_serving(P, single_its, ref0, full):
             out[label.split(" ", 1)[1]] = dict(
                 min_err=m_g.tolist(), solve_ms=ms)
     say("serving_path", **out)
-    return k2_first
+    return first
 
 
 def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
@@ -1300,9 +1490,7 @@ def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
         extra["resume_from"].res_hist.shape[0]
     if k0 == 0 and "x0" not in extra:
         fwd, tr = gkb_launches(name, maxit)
-        want = (0, fwd, 0, tr, 0, 0) if tail else (0, 0, 0, 0, fwd, tr)
-        if tail and getattr(A_op, "adj", None) is not None:
-            want = (0, fwd + tr, 0, 0, 0, 0)        # K2 on A^T's panel
+        want = (0, 0, 0, 0) + ((0, 0, fwd, tr) if tail else (fwd, tr, 0, 0))
         check(launched == want, f"{label}: {LAUNCHES} launches "
               f"{launched}, expected {want}")
     check(bool((r.niters == maxit).all()), f"{label}: niters "
@@ -1358,7 +1546,7 @@ def phase_gkb_path(P, names, gcv=False):
                                GKB_BANDS)
         rec = dict(n=n, solver=name, maxit=MAXIT,
                    lam=LAM if "hybrid" in name else None,
-                   launches_k1_k2_k3_k4_k1r_k3r=launched,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
                    host_syncs=host_syncs,
                    min_err=float(err.min()),
                    min_err_k=int(err.argmin()) + 1, final_err=float(err[-1]),
@@ -1377,7 +1565,7 @@ def phase_gkb_path(P, names, gcv=False):
             check(gap <= WITH_ADJOINT_RTOL, f"{label}: with_adjoint=True "
                   f"differs from forward panels only by {gap:.2e}")
             rec["with_adjoint"] = dict(
-                launches_k1_k2_k3_k4_k1r_k3r=la, hist_rel_diff=gap,
+                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=la, hist_rel_diff=gap,
                 panel_mb=(P.A_adj.fwd.nbytes + P.A_adj.adj.nbytes) / 1e6,
                 **gkb_timed(name, P.A_adj, P.b, P.x_true, MAXIT))
         if name == "hybrid_lsmr" and gcv:
@@ -1394,7 +1582,7 @@ def phase_gkb_path(P, names, gcv=False):
                   f"fixed-lambda minimum {err.min():.4f}")
             fn, _ = gkb_solver(name)
             rec["lam=gcv"] = dict(
-                launches_k1_k2_k3_k4_k1r_k3r=lg,
+                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=lg,
                 host_syncs=gkb_counted.host_syncs,
                 min_err=m_g, min_err_k=int(rg.err_hist.argmin()) + 1,
                 solve_ms=per_call_ms(lambda: fn(
@@ -1425,7 +1613,7 @@ def phase_gkb_serving(P, names, ref0, full):
         err = r.err_hist.cpu().numpy()
         rec = dict(n=n, solver=name, R=R, maxit=MAXIT,
                    lam=LAM if "hybrid" in name else None,
-                   launches_k1_k2_k3_k4_k1r_k3r=launched,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
                    host_syncs=gkb_counted.host_syncs,
                    min_err=err.min(axis=0).tolist(),
                    min_err_k=(err.argmin(axis=0) + 1).tolist())
@@ -1474,9 +1662,9 @@ def phase_gkb_serving(P, names, ref0, full):
 
 
 def phase_small_reference():
-    """CT n=16, 10 steps: the solves on the card (the redesigned K1; K2 at
-    R=4, in-loop and deferred; the seven GKB solvers through the redesigned
-    K1/K3 and K2/K4, forward panels only, without and with
+    """CT n=16, 10 steps: the solves on the card (the redesigned K1; the
+    redesigned K2 at R=4, in-loop and deferred; the seven GKB solvers
+    through the redesigned K1-K4, forward panels only, without and with
     ``reorth=True``: the stored bases and their gemv/bmm purification)
     against the same solves on the CPU (plain versions).
     Tolerance 1e-4 for the GMRES solves: both run in float32 with different
@@ -1510,14 +1698,13 @@ def phase_small_reference():
             reset_counts()
             runs[name] = (fn(), counts())
         got[dev] = runs
-    expected = {"single": (0, 0, 0, 0, 21, 0),
-                "batched": (0, 21, 0, 0, 0, 0),
-                "deferred": (0, 21, 0, 0, 0, 0)}
+    expected = {"single": (0, 0, 0, 0, 21, 0, 0, 0),
+                "batched": (0, 0, 0, 0, 0, 0, 21, 0),
+                "deferred": (0, 0, 0, 0, 0, 0, 21, 0)}
     for name in GKB_SINGLE + GKB_BATCHED:
         fwd, tr = gkb_launches(name, 6)
-        expected[name] = expected[name + REORTH] = \
-            (0, fwd, 0, tr, 0, 0) if "batched" in name else \
-            (0, 0, 0, 0, fwd, tr)
+        expected[name] = expected[name + REORTH] = (0, 0, 0, 0) + (
+            (0, 0, fwd, tr) if "batched" in name else (fwd, tr, 0, 0))
     worst = {}
     for name, want in expected.items():
         (rc, launches_cuda), (rh, launches_cpu) = got["cuda"][name], \
@@ -1567,20 +1754,28 @@ def main():
 
     phase_build()
     P = make_problem(64, adjoint=True)
-    k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64 = phase_ct_kernels(P)
+    k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
+        phase_ct_kernels(P)
     phase_small_kernels()
+    if "--kernels" in sys.argv[1:]:      # a short call: builds and kernels
+        del P
+        torch.cuda.empty_cache()
+        phase_ct_kernels(make_problem(128, adjoint=True))
+        say("stopped", after="kernels")
+        return
     phase_small_reference()
     main_launches, its, ref0 = phase_main_path(P)
-    k2_launches = phase_serving(P, its, ref0, full=True)
+    serving_launches = phase_serving(P, its, ref0, full=True)
     gkb = phase_gkb_path(P, GKB_SINGLE, gcv=True)
     gkb_b = phase_gkb_serving(P, GKB_BATCHED,
                               {k: v[2] for k, v in gkb.items()}, full=True)
     lsqr_launches = gkb["lsqr"][0]
-    k4_launches = gkb_b["lsqr_batched"][3]
+    lsqr_b_launches = gkb_b["lsqr_batched"]
     del P
     torch.cuda.empty_cache()
     P = make_problem(128, adjoint=True)
-    k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128 = phase_ct_kernels(P)
+    k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
+        phase_ct_kernels(P)
     P.A_adj = P.B_adj = None        # the n=128 solves need forward panels
     torch.cuda.empty_cache()
     _, its, ref0 = phase_main_path(P)
@@ -1591,25 +1786,30 @@ def main():
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
-    # the block-ELL K1 and K3 are on no path any more (0 launches in the
-    # solves above, checked); they stay as the Pallas kernels' direct
-    # counterparts on the same panel, checked and timed in phase 3
+    # the block-ELL K1-K4 are on no path any more (0 launches in the solves
+    # above, checked); they stay as the Pallas kernels' direct counterparts
+    # on the same panel, checked and timed in phase 3
     print(json.dumps({"kernels": [
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
                       main_launches[4], k1r_64, k1r_128),
-        kernel_record("bucket_matmat", csrc + "bucket_spmm.cu",
-                      pallas + ":220", k2_launches, k2_64, k2_128),
+        kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
+                      serving_launches[6], k2r_64, k2r_128),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
                       lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128),
-        kernel_record("bucket_rmatmat", csrc + "bucket_rspmv.cu",
-                      pallas + ":279", k4_launches, k4_64[:1],
-                      k4_64[1:] + k4_128),
+        kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",
+                      lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128),
         kernel_record("bucket_matvec", csrc + "bucket_spmv.cu",
                       pallas + ":46", main_launches[0], k1_64, k1_128,
                       superseded_by="row_matvec"),
+        kernel_record("bucket_matmat", csrc + "bucket_spmm.cu",
+                      pallas + ":220", serving_launches[1], k2_64, k2_128,
+                      superseded_by="row_matmat"),
         kernel_record("bucket_rmatvec", csrc + "bucket_rspmv.cu",
                       pallas + ":101", lsqr_launches[2], k3_64[:1],
-                      k3_64[1:] + k3_128, superseded_by="row_rmatvec")]}))
+                      k3_64[1:] + k3_128, superseded_by="row_rmatvec"),
+        kernel_record("bucket_rmatmat", csrc + "bucket_rspmv.cu",
+                      pallas + ":279", lsqr_b_launches[3], k4_64[:1],
+                      k4_64[1:] + k4_128, superseded_by="row_rmatmat")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 // K1 and K3 redesigned for NVIDIA Hopper: the single-RHS products on the
-// row-packed form, y = diag(out_scale) * Q * (in_scale o x).
+// row-packed form, y = diag(out_scale) * Q * (in_scale o x).  K2 and K4,
+// the multi-RHS products on the same form, follow at the end of the file
+// (row_spmm_kernel): column j of theirs is this kernel's on column j.
 //
 // Replaces, on every single-RHS operator application of the port, the Pallas
 // TPU kernels hybrid_gmres_tpu/ops/spmv_pallas.py:_bucket_matvec (K1, with
@@ -337,6 +339,393 @@ extern "C" int row_spmv(int dtype, int wide, int xs, const void* vals,
       break;
     case 2:
       err = launch_index<int8_t>(wide, xs != 0, a);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K4 redesigned: the multi-RHS products on the same form,
+//   K2: Y = diag(s) Q X on the form of the forward panel (out_scale = s);
+//   K4: Y = diag(out_scale) Q^T (s o U) on the form of the transpose
+//       (in_scale = s, gathered beside U);
+// for X (ncols, R) read through its element strides and Y (rows, R) written
+// through its own (the caller's slab, in place).  They replace the Pallas
+// kernels _bucket_matmat (K2, wrapper bucketed_bsr_matmat) and
+// _bucket_rmatmat (K4, wrapper bucketed_bsr_rmatmat) of
+// hybrid_gmres_tpu/ops/spmv_pallas.py on every multi-RHS application.
+//
+// The same walk as row_spmv_kernel (the same lanes per row, the same
+// persistent blocks over contiguous row runs), but each stored entry and its
+// index are read and converted once per tile of RT = 8 right-hand sides and
+// used for RT FMAs.  One launch per call: blockIdx.y walks the tiles (each
+// further tile reads the form again), the last one masked.
+//
+// What bounds it: bytes.  The form is 3-5 bytes per nonzero, the RT gathered
+// floats of an entry one 32-byte sector when X is interleaved; at CT n=128
+// the gathers (about 810 MB on A) come from L1/L2, the form (82 MB) from HBM.
+// The gathered tile is read one of two ways (GATHER):
+//   STRIDED: eight 4-byte loads through X's strides (any layout, any R);
+//   PACKED:  one or two 16-byte loads from a row-major X (rows on 16-byte
+//            boundaries, each readable up to R rounded up to a multiple of
+//            4: the caller checks its storage); for K4 the caller has
+//            multiplied the scale into its interleaving copy, so K2 and K4
+//            run the same instantiation.
+// Blocks of 1024 threads or of 256, four to a multiprocessor: the same 64
+// registers a thread; which is faster depends on the lanes per row and the
+// gather (the caller's choice, measured on the CT forms).
+//
+// Bits: for each column, the sum is K1's (K3's) exactly: each lane adds its
+// vectors in ascending order, slots in order, one fmaf per entry; the lanes
+// of a warp combine through the same xor tree (a halving butterfly that
+// trades half of the RT values at each of its first three steps: every
+// addition still adds the same two operands, and a + b == b + a); the warps
+// of a row in warp order.  So column j of row_spmm equals row_spmv on
+// column j bit for bit, in every GATHER and across runs.  No atomics.
+
+namespace {
+
+constexpr int RT = 8;
+enum Gather { STRIDED = 0, PACKED = 1 };
+
+// A vector's values and indices kept as loaded (8 int8 values in two words,
+// 8 uint16 indices in four) and unpacked a slot at a time, with the
+// conversions of Vals and Cols: fewer registers live across the gathers.
+template <typename T>
+struct RawVals;
+
+template <>
+struct RawVals<int8_t> {
+  uint2 w;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    const unsigned u = (j < 4 ? w.x : w.y) ^ 0x80808080u;
+    return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + (j & 3))) -
+           8388736.0f;
+  }
+};
+
+template <>
+struct RawVals<__nv_bfloat16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    const unsigned u = j < 2 ? w.x : j < 4 ? w.y : j < 6 ? w.z : w.w;
+    return __uint_as_float((j & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+};
+
+template <>
+struct RawVals<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float get(int j) const {
+    const float4& h = j < 4 ? a : b;
+    const int k = j & 3;
+    return k == 0 ? h.x : k == 1 ? h.y : k == 2 ? h.z : h.w;
+  }
+};
+
+template <typename I>
+struct RawCols;
+
+template <>
+struct RawCols<uint16_t> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint16_t* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ int get(int j) const {
+    const unsigned u = j < 2 ? w.x : j < 4 ? w.y : j < 6 ? w.z : w.w;
+    return static_cast<int>((j & 1) ? (u >> 16) : (u & 0xffffu));
+  }
+};
+
+template <>
+struct RawCols<int> {
+  int4 a, b;
+  __device__ __forceinline__ void load(const int* p) {
+    a = __ldg(reinterpret_cast<const int4*>(p));
+    b = __ldg(reinterpret_cast<const int4*>(p) + 1);
+  }
+  __device__ __forceinline__ int get(int j) const {
+    const int4& h = j < 4 ? a : b;
+    const int k = j & 3;
+    return k == 0 ? h.x : k == 1 ? h.y : k == 2 ? h.z : h.w;
+  }
+};
+
+// The RT values of column c of the tile: X[c, 0:RT] (times in_scale[c] for
+// K4's strided gather; the packed gather's input holds the product), zero
+// past the tile's width w.
+template <bool K4, int GATHER>
+__device__ __forceinline__ void gather_tile(const float* __restrict__ X,
+                                            int64_t sx0, int64_t sx1,
+                                            const float* __restrict__ in_scale,
+                                            int c, int w, float xv[RT]) {
+  if (GATHER == PACKED) {
+    const float4* p = reinterpret_cast<const float4*>(X + c * sx0);
+    const float4 lo = __ldg(p);
+    const float4 hi = w > 4 ? __ldg(p + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
+    xv[0] = lo.x; xv[1] = lo.y; xv[2] = lo.z; xv[3] = lo.w;
+    xv[4] = hi.x; xv[5] = hi.y; xv[6] = hi.z; xv[7] = hi.w;
+  } else {
+    const float* p = X + c * sx0;
+#pragma unroll
+    for (int t = 0; t < RT; ++t, p += sx1) xv[t] = t < w ? __ldg(p) : 0.0f;
+  }
+  if (K4 && GATHER == STRIDED) {
+    const float s = __ldg(in_scale + c);
+#pragma unroll
+    for (int t = 0; t < RT; ++t) xv[t] = xv[t] * s;
+  }
+}
+
+// One step of the butterfly: lanes whose bit o is set keep the upper half of
+// their H values, the others the lower half; each adds its partner's value of
+// the same column.
+template <int H>
+__device__ __forceinline__ void halve(float acc[RT], int lane, int o,
+                                      int& base) {
+  const bool up = (lane & o) != 0;
+#pragma unroll
+  for (int t = 0; t < H / 2; ++t) {
+    const float send = up ? acc[t] : acc[t + H / 2];
+    const float keep = up ? acc[t + H / 2] : acc[t];
+    acc[t] = keep + __shfl_xor_sync(FULL, send, o);
+  }
+  if (up) base += H / 2;
+}
+
+// NT threads per block, 1024 / NT blocks per multiprocessor: at most 64
+// registers a thread either way.  K4: the strided gather multiplies in_scale
+// in (the packed gather's K4 runs as K2 on the scaled copy).
+template <typename T, typename I, bool K4, int GATHER, int NT>
+__global__ void __launch_bounds__(NT, 1024 / NT)
+    row_spmm_kernel(const T* __restrict__ vals, const I* __restrict__ cols,
+                    const int* __restrict__ vec_off,
+                    const int* __restrict__ row_map,
+                    const float* __restrict__ X, int64_t sx0, int64_t sx1,
+                    const float* __restrict__ in_scale,
+                    const float* __restrict__ out_scale,
+                    float* __restrict__ Y, int64_t sy0, int64_t sy1,
+                    int rows, int R, int lanes, int row_blocks) {
+  __shared__ float part[NT / 32][RT];
+  const int tid = threadIdx.x;
+  const int c0 = static_cast<int>(blockIdx.y) * RT;
+  const int w = min(RT, R - c0);
+  X += c0 * sx1;
+  Y += c0 * sy1;
+  const int rows_per_block = NT / lanes;
+  const int g = tid / lanes;
+  const int l = tid % lanes;
+  const int warp_lanes = lanes < 32 ? lanes : 32;
+  // lanes that hold copies of the same columns after the butterfly
+  const int dup_mask = (warp_lanes >= 8 ? warp_lanes / 8 : 1) - 1;
+  const int grid = static_cast<int>(gridDim.x);
+  const int bx = static_cast<int>(blockIdx.x);
+  const int chunk = (row_blocks + grid - 1) / grid;
+  const int rb_end = min(row_blocks, (bx + 1) * chunk);
+  for (int rb = bx * chunk; rb < rb_end; ++rb) {
+    const int r = rb * rows_per_block + g;
+    float acc[RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) acc[t] = 0.0f;
+    if (r < rows) {
+      const int end = vec_off[r + 1];
+      for (int k = vec_off[r] + l; k < end; k += lanes) {
+        RawVals<T> a;
+        RawCols<I> c;
+        a.load(vals + static_cast<int64_t>(k) * V);
+        c.load(cols + static_cast<int64_t>(k) * V);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float xv[RT];
+          gather_tile<K4, GATHER>(X, sx0, sx1, in_scale, c.get(j), w, xv);
+          const float aj = a.get(j);
+#pragma unroll
+          for (int t = 0; t < RT; ++t) acc[t] = fmaf(aj, xv[t], acc[t]);
+        }
+      }
+    }
+    // the xor tree of row_spmv_kernel, column by column, as a butterfly:
+    // afterwards a lane holds `held` columns from `base` on
+    int o = warp_lanes >> 1;
+    int base = 0;
+    int held = RT;
+    if (o > 0) { halve<8>(acc, tid, o, base); held = 4; o >>= 1; }
+    if (o > 0) { halve<4>(acc, tid, o, base); held = 2; o >>= 1; }
+    if (o > 0) { halve<2>(acc, tid, o, base); held = 1; o >>= 1; }
+    for (; o > 0; o >>= 1) acc[0] += __shfl_xor_sync(FULL, acc[0], o);
+    if (lanes <= 32) {
+      if (r < rows && (l & dup_mask) == 0) {
+        const int i = row_map[r];
+#pragma unroll
+        for (int t = 0; t < RT; ++t) {
+          if (t < held && base + t < w) {
+            Y[i * sy0 + (base + t) * sy1] =
+                out_scale != nullptr ? out_scale[i] * acc[t] : acc[t];
+          }
+        }
+      }
+    } else {  // a row over several warps: their sums in warp order
+      if ((tid & dup_mask) == 0) {
+#pragma unroll
+        for (int t = 0; t < RT; ++t) {
+          if (t < held) part[tid >> 5][base + t] = acc[t];
+        }
+      }
+      __syncthreads();
+      if (l < w && r < rows) {   // the row's first warp, a column a lane
+        float total = part[tid >> 5][l];
+        for (int ww = 1; ww < lanes / 32; ++ww) {
+          total += part[(tid >> 5) + ww][l];
+        }
+        const int i = row_map[r];
+        Y[i * sy0 + l * sy1] =
+            out_scale != nullptr ? out_scale[i] * total : total;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+struct MatArgs {
+  const void* vals;
+  const void* cols;
+  const int* vec_off;
+  const int* row_map;
+  const float* X;
+  int64_t sx0, sx1;
+  const float* in_scale;
+  const float* out_scale;
+  float* Y;
+  int64_t sy0, sy1;
+  int rows, R, lanes;
+  cudaStream_t stream;
+};
+
+template <typename T, typename I, bool K4, int GATHER, int NT>
+cudaError_t launch_mm(const MatArgs& a) {
+  if (a.lanes < 1 || a.lanes > MAX_LANES || (a.lanes & (a.lanes - 1)) ||
+      a.lanes > NT) {
+    return cudaErrorInvalidValue;
+  }
+  if (GATHER == PACKED && (K4 || a.sx1 != 1 || a.sx0 % 4 ||
+                           reinterpret_cast<uintptr_t>(a.X) % 16)) {
+    return cudaErrorInvalidValue;
+  }
+  if (K4 != (a.in_scale != nullptr)) return cudaErrorInvalidValue;
+  const int tiles = (a.R + RT - 1) / RT;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const int rows_per_block = NT / a.lanes;
+  const int row_blocks = (a.rows + rows_per_block - 1) / rows_per_block;
+  auto kernel = row_spmm_kernel<T, I, K4, GATHER, NT>;
+  // resident blocks, queried once per instantiation
+  static int cached_blocks = 0;
+  if (cached_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        NT, 0);
+    if (err != cudaSuccess) return err;
+    cached_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const dim3 grid(row_blocks < cached_blocks ? row_blocks : cached_blocks,
+                  tiles);
+  kernel<<<grid, NT, 0, a.stream>>>(
+      static_cast<const T*>(a.vals), static_cast<const I*>(a.cols), a.vec_off,
+      a.row_map, a.X, a.sx0, a.sx1, a.in_scale, a.out_scale, a.Y, a.sy0,
+      a.sy1, a.rows, a.R, a.lanes, row_blocks);
+  return cudaGetLastError();
+}
+
+// K2 and K4 share the packed instantiation: K4's input is the scaled copy.
+template <typename T, typename I, bool K4>
+cudaError_t launch_gather(int gather, int threads, const MatArgs& a) {
+  const bool big = threads == 1024;
+  if (!big && threads != 256) return cudaErrorInvalidValue;
+  switch (gather) {
+    case STRIDED:
+      return big ? launch_mm<T, I, K4, STRIDED, 1024>(a)
+                 : launch_mm<T, I, K4, STRIDED, 256>(a);
+    case PACKED:
+      return big ? launch_mm<T, I, false, PACKED, 1024>(a)
+                 : launch_mm<T, I, false, PACKED, 256>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_mm_index(int wide, int k4, int gather, int threads,
+                            const MatArgs& a) {
+  if (wide) {
+    return k4 ? launch_gather<T, int, true>(gather, threads, a)
+              : launch_gather<T, int, false>(gather, threads, a);
+  }
+  return k4 ? launch_gather<T, uint16_t, true>(gather, threads, a)
+            : launch_gather<T, uint16_t, false>(gather, threads, a);
+}
+
+}  // namespace
+
+// C entry point of K2/K4, loaded with ctypes.  dtype and wide as row_spmv;
+// k4: 1 for the transposed product with its in_scale (gathered beside X,
+// or, for the packed gather, multiplied into X by the caller: in_scale then
+// null); gather: 0 strided, 1 packed (row-major X, rows on 16-byte
+// boundaries and readable up to R rounded up to a multiple of 4); threads:
+// 256 or 1024 per block.  X (ncols, R) and Y (rows, R) by element strides;
+// in_scale (ncols,) and out_scale (rows,) may be null.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int row_spmm(int dtype, int wide, int k4, int gather, int threads,
+                        const void* vals, const void* cols,
+                        const void* vec_off, const void* row_map,
+                        const void* X, int64_t sx0, int64_t sx1,
+                        const void* in_scale, const void* out_scale, void* Y,
+                        int64_t sy0, int64_t sy1, int rows, int ncols, int R,
+                        int lanes, void* stream) {
+  if (rows <= 0 || ncols <= 0 || R <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MatArgs a{vals,
+                  cols,
+                  static_cast<const int*>(vec_off),
+                  static_cast<const int*>(row_map),
+                  static_cast<const float*>(X),
+                  sx0,
+                  sx1,
+                  static_cast<const float*>(in_scale),
+                  static_cast<const float*>(out_scale),
+                  static_cast<float*>(Y),
+                  sy0,
+                  sy1,
+                  rows,
+                  R,
+                  lanes,
+                  static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = launch_mm_index<float>(wide, k4, gather, threads, a);
+      break;
+    case 1:
+      err = launch_mm_index<__nv_bfloat16>(wide, k4, gather, threads, a);
+      break;
+    case 2:
+      err = launch_mm_index<int8_t>(wide, k4, gather, threads, a);
       break;
     default:
       err = cudaErrorInvalidValue;

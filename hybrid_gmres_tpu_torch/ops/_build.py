@@ -39,7 +39,10 @@ LIBRARIES = {
                            _VP, _VP, _I, _I, _I, _I, _I, _I, _I64, _I64,
                            _I64, _I64, _VP]},
     "row_spmv": {"row_spmv": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                              _VP, _I, _I, _I, _VP]},
+                              _VP, _I, _I, _I, _VP],
+                 "row_spmm": [_I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
+                              _VP, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I,
+                              _I, _I, _I, _VP]},
 }
 _LOCK = threading.Lock()
 _LIBS: dict = {}

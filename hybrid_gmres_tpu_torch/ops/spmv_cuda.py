@@ -27,8 +27,16 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     column indices, 3-5 bytes per nonzero where the block-ELL panel reads
     9-15), one launch per application, every sum in a fixed order;
     :func:`row_matvec_plain` and :func:`row_rmatvec_plain` on a CPU tensor.
-    The block-ELL K1 and K3 stay as the direct counterparts of the Pallas
-    kernels on the same panel; no solver launches them.
+  * :func:`row_matmat` (K2 redesigned) and :func:`row_rmatmat` (K4
+    redesigned) are the multi-RHS products that ``.matmat``,
+    ``.matmat_into`` and ``.rmatmat`` run: the same form and walk in the
+    same source, each entry read once per tile of 8 right-hand sides, every
+    column summed exactly as K1/K3 sum it (column j is their product on
+    column j, bit for bit); :func:`row_matmat_plain` and
+    :func:`row_rmatmat_plain` on a CPU tensor.
+
+The block-ELL K1-K4 stay as the direct counterparts of the Pallas kernels on
+the same panel; no solver launches them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls back
 to the plain version.
@@ -392,32 +400,41 @@ STAGE_MAX_COLS = 16384
 
 def _row_plain(rp: RowPacked, v, in_scale, out_scale):
     """Plain PyTorch ``diag(out_scale) Q (in_scale * v)`` on a row-packed
-    form: gather, then a fixed-order segment sum (``RowPacked.sum_order``).
-    Each row is read in its pack order (the source panel's block order); the
-    entries of one source block (a segment) are chained with fused
-    multiply-adds (float64 product and sum, one rounding to float32 each),
-    the segments of a row added in order, as the block-ELL kernels of both
-    packages sum a block and then the blocks.  Then the un-sort through
-    ``row_map`` and the row scale.  float32 results; returns ``v.dtype``."""
+    form, for ``v`` (ncols,) or (ncols, R): gather, then a fixed-order
+    segment sum (``RowPacked.sum_order``).  Each row is read in its pack
+    order (the source panel's block order); the entries of one source block
+    (a segment) are chained with fused multiply-adds (float64 product and
+    sum, one rounding to float32 each), the segments of a row added in
+    order, as the block-ELL kernels of both packages sum a block and then
+    the blocks.  Then the un-sort through ``row_map`` and the row scale.
+    Every step is elementwise across the columns of ``v``, so column j of a
+    multi-RHS product is the single-RHS product of column j, bit for bit.
+    float32 results; returns ``v.dtype``."""
     src, cols, seg_steps, row_steps, rows = rp.sum_order
-    v32 = v.to(torch.float32)
+    V = v.to(torch.float32)
+    single = V.ndim == 1
+    if single:
+        V = V[:, None]
     if in_scale is not None:
-        v32 = in_scale.to(torch.float32) * v32
-    prod = rp.vals[src].to(torch.float64) * v32.to(torch.float64)[cols]
-    seg = torch.zeros(seg_steps[0][0].shape[0] if seg_steps else 0,
+        V = in_scale.to(torch.float32)[:, None] * V
+    R = V.shape[1]
+    prod = rp.vals[src].to(torch.float64)[:, None] * V.to(torch.float64)[cols]
+    seg = torch.zeros((seg_steps[0][0].shape[0] if seg_steps else 0, R),
                       dtype=torch.float32, device=v.device)
     for idx, at in seg_steps:
         seg[at] = (seg[at].to(torch.float64) + prod[idx]).to(torch.float32)
-    runs = torch.zeros(rows.shape[0], dtype=torch.float32, device=v.device)
+    runs = torch.zeros((rows.shape[0], R), dtype=torch.float32,
+                       device=v.device)
     for idx, at in row_steps:
         runs[at] = runs[at] + seg[idx]
-    y_packed = torch.zeros(rp.shape[0], dtype=torch.float32, device=v.device)
+    y_packed = torch.zeros((rp.shape[0], R), dtype=torch.float32,
+                           device=v.device)
     y_packed[rows] = runs
     y = torch.empty_like(y_packed)
     y[rp.row_map.long()] = y_packed
     if out_scale is not None:
-        y = out_scale.to(torch.float32) * y
-    return y.to(v.dtype)
+        y = out_scale.to(torch.float32)[:, None] * y
+    return (y[:, 0] if single else y).to(v.dtype)
 
 
 def row_matvec_plain(rp: RowPacked, x, scale=None):
@@ -432,16 +449,17 @@ def row_rmatvec_plain(rp: RowPacked, u, scale=None, out_scale=None):
     return _row_plain(rp, u, scale, out_scale)
 
 
-def _row_launch(name, rp: RowPacked, v, in_scale, out_scale, stage):
-    """Checks, then one launch of ``csrc/row_spmv.cu``; returns float32
-    ``y`` (rows,)."""
+def _row_checks(name, rp: RowPacked, v, in_scale, out_scale):
+    """The argument checks of the row-packed kernels; returns the dtype code
+    and the float32 contiguous scales (or None)."""
     rows, ncols = rp.shape
     code = _DTYPE_CODES.get(rp.dtype)
     if code is None:
         raise TypeError(f"{name}: no kernel for {rp.dtype} values")
-    if tuple(v.shape) != (ncols,):
+    if v.shape[0] != ncols:
+        want = (ncols,) if v.ndim == 1 else (ncols, "R")
         raise ValueError(f"{name}: input has shape {tuple(v.shape)}, the "
-                         f"operator needs {(ncols,)}")
+                         f"operator needs {want}")
     if rp.device != v.device:
         raise ValueError(f"{name}: form on {rp.device}, input on {v.device}")
     if not 1 <= rp.lanes <= MAX_LANES or rp.lanes & (rp.lanes - 1):
@@ -456,6 +474,17 @@ def _row_launch(name, rp: RowPacked, v, in_scale, out_scale, stage):
             if s.shape != (size,):
                 raise ValueError(f"{name}: scale must have shape {(size,)}")
         scales.append(s)
+    return code, scales
+
+
+def _row_launch(name, rp: RowPacked, v, in_scale, out_scale, stage):
+    """Checks, then one launch of ``csrc/row_spmv.cu``; returns float32
+    ``y`` (rows,)."""
+    rows, ncols = rp.shape
+    if v.ndim != 1:
+        raise ValueError(f"{name}: input has shape {tuple(v.shape)}, the "
+                         f"operator needs {(ncols,)}")
+    code, scales = _row_checks(name, rp, v, in_scale, out_scale)
     if stage is None:
         stage = ncols <= STAGE_MAX_COLS
     v32 = v.to(torch.float32).contiguous()
@@ -513,6 +542,198 @@ def row_rmatvec(rp: RowPacked, u, scale=None, out_scale=None, stage=None):
 
 row_rmatvec.launches = 0
 
+# The multi-RHS kernels' ways of reading the gathered tile of 8 columns
+# (csrc/row_spmv.cu, row_spmm): through X's strides; one or two 16-byte
+# loads from a row-major X.  "copy" is the packed gather after an
+# interleaving copy (for K4 with the row scale multiplied in: the kernel then
+# reads no scale).
+GATHERS = {"strided": 0, "packed": 1}
+RHS_TILE = 8
+BLOCK_THREADS = (256, 1024)
+# The default gather (measured on CT n=64 and n=128, PERF.md): through the
+# strides while the form stays in L2 (at most a quarter of the H100's 50 MB;
+# no copy launch), else the packed gather on an interleaved input.
+STRIDED_MAX_FORM_BYTES = 12_500_000
+
+
+def _packable(X32):
+    """Row-major, rows on 16-byte boundaries, and every row readable up to R
+    rounded up to a multiple of 4 (the ``packed`` gather reads whole 16-byte
+    groups; what it reads past R it does not use): the ``packed`` gather
+    reads it as it is."""
+    ncols, R = X32.shape
+    last = X32.storage_offset() + (ncols - 1) * X32.stride(0) + -(-R // 4) * 4
+    return (X32.stride(1) == 1 and X32.stride(0) % 4 == 0
+            and X32.data_ptr() % 16 == 0
+            and last * 4 <= X32.untyped_storage().nbytes())
+
+
+def _interleaved(X32, scale=None):
+    """An interleaving copy of ``X32`` (ncols, R), times ``scale[:, None]``
+    when given, in one launch: row-major with R rounded up to a multiple of
+    4, sliced back to R.  The float32 product is the one the kernels form
+    (``x * s``), so the bits do not change.  The padding is left unset: the
+    packed gather reads it and uses it for nothing."""
+    ncols, R = X32.shape
+    Xi = torch.empty((ncols, -(-R // 4) * 4), dtype=torch.float32,
+                     device=X32.device)[:, :R]
+    if scale is None:
+        Xi.copy_(X32)
+    else:
+        torch.mul(X32, scale[:, None], out=Xi)
+    return Xi
+
+
+def _gather_for(rp: RowPacked, X32, scaled=False):
+    """The default gather: ``"strided"`` while the form stays in L2 (at most
+    ``STRIDED_MAX_FORM_BYTES``), else ``"packed"`` on an input that is
+    packed already (and needs no scale), else ``"copy"``."""
+    if rp.nbytes <= STRIDED_MAX_FORM_BYTES:
+        return "strided"
+    return "packed" if _packable(X32) and not scaled else "copy"
+
+
+def _threads_for(rp: RowPacked, gather):
+    """The default block size: 1024 threads for rows of 128 lanes or more,
+    and for the strided gather on rows of 32 lanes or more; else 256 (four
+    blocks a multiprocessor).  Measured on the CT forms (PERF.md)."""
+    big_from = 32 if gather == "strided" else 128
+    return 1024 if rp.lanes >= big_from else 256
+
+
+def row_matmat_plain(rp: RowPacked, X, scale=None):
+    """Plain PyTorch ``Y = diag(scale) Q X`` for ``X`` (ncols, R) on the form
+    of the forward panel: column j is :func:`row_matvec_plain` on column j,
+    bit for bit.  Returns ``X.dtype``, row-major (rows, R)."""
+    return _row_plain(rp, X, None, scale)
+
+
+def row_rmatmat_plain(rp: RowPacked, U, scale=None, out_scale=None):
+    """Plain PyTorch ``Y = diag(out_scale) Q^T (scale * U)`` for ``U``
+    (rows of A, R) on the form of the transpose (or of an adjoint panel):
+    column j is :func:`row_rmatvec_plain` on column j, bit for bit."""
+    return _row_plain(rp, U, scale, out_scale)
+
+
+def _row_mm_launch(name, rp: RowPacked, X, in_scale, out_scale, out,
+                   gather, threads=None):
+    """Checks, then one launch of ``row_spmm`` in ``csrc/row_spmv.cu``;
+    returns ``Y`` (rows, R) float32: ``out`` itself when it is float32,
+    else a new tensor in the orientation of ``X``.  ``threads``: per block
+    (``BLOCK_THREADS``; None: :func:`_threads_for`).  With an ``in_scale``
+    the kernel runs as K4.  The copy and the launch run under a profiler
+    range named ``name``, which tells K2 from K4 (they share the packed
+    gather's instantiation) and counts the copy with its product."""
+    rows, ncols = rp.shape
+    if X.ndim != 2:
+        raise ValueError(f"{name}: input has shape {tuple(X.shape)}, the "
+                         f"operator needs {(ncols, 'R')}")
+    code, scales = _row_checks(name, rp, X, in_scale, out_scale)
+    k4 = scales[0] is not None
+    R = X.shape[1]
+    X32 = X.to(torch.float32)
+    if out is not None:
+        if tuple(out.shape) != (rows, R) or out.device != X.device:
+            raise ValueError(f"{name}: out must be {(rows, R)} on "
+                             f"{X.device}")
+        Y = out if out.dtype == torch.float32 else torch.empty(
+            (rows, R), dtype=torch.float32, device=X.device)
+    elif X32.stride(0) == 1 and X32.stride(1) >= max(ncols, 1):
+        # the transposed view of an (R, ncols) tensor in, the same layout out
+        Y = torch.empty((R, rows), dtype=torch.float32, device=X.device).T
+    else:
+        Y = torch.empty((rows, R), dtype=torch.float32, device=X.device)
+    if gather is None:
+        gather = _gather_for(rp, X32, scaled=k4)
+    if gather not in GATHERS and gather != "copy":
+        raise ValueError(f"{name}: gather {gather!r} not in "
+                         f"{sorted(GATHERS) + ['copy']}")
+    if threads is None:
+        threads = _threads_for(rp, gather)
+    if threads not in BLOCK_THREADS:
+        raise ValueError(f"{name}: {threads} threads per block not supported")
+    if not (rows and R):
+        return Y
+    from hybrid_gmres_tpu_torch.ops._build import load_library
+
+    with torch.profiler.record_function(name):
+        if gather == "copy" or (gather == "packed" and k4):
+            # K4's packed gather reads the scaled copy, and no scale
+            X32, gather = _interleaved(X32, scales[0]), "packed"
+            scales[0] = None
+        if gather == "packed" and not _packable(X32):
+            raise ValueError(f"{name}: the packed gather needs a row-major "
+                             "input with rows on 16-byte boundaries, readable "
+                             "up to R rounded up to a multiple of 4")
+        lib = load_library("row_spmv")
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = lib.row_spmm(
+            code, int(rp.wide), int(k4), GATHERS[gather], threads,
+            rp.vals.data_ptr(), rp.cols.data_ptr(), rp.vec_off.data_ptr(),
+            rp.row_map.data_ptr(), X32.data_ptr(), X32.stride(0),
+            X32.stride(1),
+            *(None if s is None else s.data_ptr() for s in scales),
+            Y.data_ptr(), Y.stride(0), Y.stride(1), rows, ncols, R,
+            rp.lanes, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+    return Y
+
+
+def row_matmat(rp: RowPacked, X, scale=None, out=None, gather=None,
+               threads=None):
+    """``Y = diag(scale) Q X`` for ``X`` (ncols, R) through the redesigned
+    K2: the CUDA kernel for a CUDA ``X``, the plain version for a CPU ``X``.
+
+    One launch per call, whatever R: tiles of 8 columns, one read of the
+    form each.  ``X`` is read through its strides; ``Y`` comes back in its
+    orientation (for the transposed view of an (R, ncols) tensor, the
+    transposed view of a contiguous (R, rows) one).  ``out``: an (rows, R)
+    tensor of ``X``'s device, any strides, written in place when float32.
+    ``gather``: how the kernel reads the tile (``"strided"``, ``"packed"``,
+    or ``"copy"``: an interleaving copy, then packed; None:
+    :func:`_gather_for`) and ``threads`` per block (see
+    :func:`_row_mm_launch`) give the same bits.  Column j equals
+    :func:`row_matvec` on column j bit for bit.  ``row_matmat.launches``
+    counts the launches."""
+    if X.device.type == "cpu":
+        Y = row_matmat_plain(rp, X, scale)
+        return Y if out is None else out.copy_(Y)
+    if X.device.type != "cuda":
+        raise ValueError(f"row_matmat: unsupported device {X.device}")
+    Y = _row_mm_launch("row_matmat", rp, X, None, scale, out, gather,
+                       threads)
+    if rp.shape[0] and X.shape[1]:
+        row_matmat.launches += 1
+    if out is not None:
+        return out if Y is out else out.copy_(Y)
+    return Y.to(X.dtype)
+
+
+row_matmat.launches = 0
+
+
+def row_rmatmat(rp: RowPacked, U, scale=None, out_scale=None, gather=None,
+                threads=None):
+    """``Y = diag(out_scale) Q^T (scale * U)`` for ``U`` (rows of A, R)
+    through the redesigned K4 on the form of the transpose: the CUDA kernel
+    for a CUDA ``U`` (``scale`` gathered beside ``U``), the plain version
+    for a CPU ``U``.  Layouts, ``gather``, ``threads`` and the bits as in
+    :func:`row_matmat`: column j equals :func:`row_rmatvec` on column j.
+    ``row_rmatmat.launches`` counts the launches."""
+    if U.device.type == "cpu":
+        return row_rmatmat_plain(rp, U, scale, out_scale)
+    if U.device.type != "cuda":
+        raise ValueError(f"row_rmatmat: unsupported device {U.device}")
+    Y = _row_mm_launch("row_rmatmat", rp, U, scale, out_scale, None, gather,
+                       threads)
+    if rp.shape[0] and U.shape[1]:
+        row_rmatmat.launches += 1
+    return Y.to(U.dtype)
+
+
+row_rmatmat.launches = 0
+
 
 def _row_quantize_csr(csr, qmax: int = 127):
     """Per-row symmetric integer quantization: ``A ~= diag(s) Q`` with
@@ -554,17 +775,16 @@ def _storage_dtype(dtype):
 
 class BlockELLOperator(LinearOperator):
     """Sparse operator backed by the bucketed block-ELL panels (twin of
-    ``PallasBSROperator``) and, for its single-RHS products, two row-packed
-    forms built from them at construction (pack time, never in a solve).
+    ``PallasBSROperator``) and, for its products, two row-packed forms
+    built from them at construction (pack time, never in a solve).
 
-    ``matvec`` runs the redesigned K1 (:func:`row_matvec`) on the form of
-    the forward panel; ``rmatvec`` the redesigned K3 (:func:`row_rmatvec`)
-    on ``adj_rows``: the form of the transpose of the forward panel, or of
-    the adjoint panel when one was built (``with_adjoint=True``).  The
-    multi-RHS products stay on the panels: ``matmat`` through K2; ``rmatmat``
-    through K2 on the adjoint panel when there is one, else through K4 on the
-    forward panel (``with_adjoint=False``, what ``ct_gpu_operators`` builds
-    by default: half the panel memory).  For a mismatched pair, pass B as
+    ``matvec`` and ``matmat`` run the redesigned K1 and K2
+    (:func:`row_matvec`, :func:`row_matmat`) on the form of the forward
+    panel; ``rmatvec`` and ``rmatmat`` the redesigned K3 and K4
+    (:func:`row_rmatvec`, :func:`row_rmatmat`) on ``adj_rows``: the form of
+    the transpose of the forward panel (``with_adjoint=False``, what
+    ``ct_gpu_operators`` builds by default), or of the adjoint panel when
+    one was built (``with_adjoint=True``).  For a mismatched pair, pass B as
     its own operator — B is never derived from A.
 
     ``dtype=int8`` stores per-row symmetrically quantized blocks with f32 row
@@ -650,21 +870,17 @@ class BlockELLOperator(LinearOperator):
         return row_rmatvec(self.adj_rows, u, self.fwd_scale, self.adj_scale)
 
     def matmat(self, X):
-        """Y (m, R) = A @ X (n, R) through K2: one panel read serves all
-        the columns of a tile."""
-        return bucket_matmat(self.fwd, X, self.fwd_scale)
+        """Y (m, R) = A @ X (n, R) through the redesigned K2
+        (:func:`row_matmat`): one read of the form serves the 8 columns of
+        a tile."""
+        return row_matmat(self.fwd_rows, X, self.fwd_scale)
 
     def matmat_into(self, X, out):
         """``matmat`` written into ``out`` (m, R), any strides, in place."""
-        return bucket_matmat(self.fwd, X, self.fwd_scale, out=out)
+        return row_matmat(self.fwd_rows, X, self.fwd_scale, out=out)
 
     def rmatmat(self, U):
-        """Y (n, R) = A^T @ U (m, R): K4 on the forward panel, or K2 on the
-        adjoint panel when there is one (``U`` pre-scaled by
-        ``fwd_scale``)."""
-        if self.adj is None:
-            return bucket_rmatmat(self.fwd, U, self.fwd_scale)
-        out_dtype = U.dtype
-        if self.fwd_scale is not None:
-            U = self.fwd_scale[:, None] * U.to(torch.float32)
-        return bucket_matmat(self.adj, U, self.adj_scale).to(out_dtype)
+        """Y (n, R) = A^T @ U (m, R) through the redesigned K4
+        (:func:`row_rmatmat`) on ``adj_rows``, ``U`` scaled by
+        ``fwd_scale`` as the kernel reads it."""
+        return row_rmatmat(self.adj_rows, U, self.fwd_scale, self.adj_scale)

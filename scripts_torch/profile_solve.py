@@ -8,7 +8,7 @@ block-ELL operators, forward panels only, maxit=100) in five modes — hybrid
 BA-GMRES (lam=1e-2, fused residual) as the single-RHS solve and as the
 serving batch of R=8 sinograms (noise seeds 0..7) with in-loop and with
 deferred histories, and the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
-(the redesigned K1 + K3 on the row-packed forms, and K2 + K4) —
+(the redesigned K1 + K3, and K2 + K4, on the row-packed forms) —
 and times 5 solves of each after one warm-up, all before the first profiler
 session (the profiler slows the host loop after it, too).  Then it runs one
 solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
@@ -20,13 +20,18 @@ Prints one JSON line per size and mode with:
     sets) in the trace, and ``busy_share`` = busy / traced;
   * ``launches``: device activities in the trace, and
     ``launches_per_iteration`` = launches / 100;
-  * ``kinds``: device milliseconds and activity count by kind.
+  * ``kinds``: device milliseconds and activity count by kind.  The
+    multi-RHS products K2r/K4r are told apart by the profiler range their
+    wrapper opens (``row_matmat`` / ``row_rmatmat``): all device work
+    launched inside it, the interleaving copy included, counts as the
+    product.
 
 Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import re
@@ -56,12 +61,45 @@ KINDS = (
                                            "where", "index", "cat")),
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the profiler ranges of the multi-RHS wrappers (ops/spmv_cuda.py)
+RANGES = {"row_matmat": "K2 row_matmat", "row_rmatmat": "K4 row_rmatmat"}
 
 
-def kind_of(ev):
+class Ranges:
+    """The wrappers' host ranges, and the host launch of each device
+    activity (its runtime call, by correlation id): a device activity whose
+    launch lies in a range belongs to that range's kind."""
+
+    def __init__(self, trace):
+        spans = sorted((ev["ts"], ev["ts"] + ev["dur"], RANGES[ev["name"]])
+                       for ev in trace if ev.get("ph") == "X"
+                       and ev.get("cat") in ("user_annotation", "cpu_op")
+                       and ev.get("name") in RANGES)
+        self.starts = [t0 for t0, _, _ in spans]
+        self.spans = spans
+        self.launch_ts = {
+            ev["args"]["correlation"]: ev["ts"] for ev in trace
+            if ev.get("ph") == "X"
+            and ev.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in ev.get("args", {})}
+
+    def kind(self, ev):
+        ts = self.launch_ts.get(ev.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(self.starts, ts) - 1 if ts is not None else -1
+        if i >= 0 and ts <= self.spans[i][1]:
+            return self.spans[i][2]
+        return None
+
+
+def kind_of(ev, ranges):
+    kind = ranges.kind(ev)
+    if kind is not None:
+        return kind
     if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
         return "memcpy/memset"
     name = ev.get("name", "").lower()
+    if "row_spmm_kernel" in name:
+        return "row_spmm outside its wrapper's range"
     if "row_spmv_kernel" in name:
         # one template for both: the third argument is the gathered input
         # scale, on in K3's mode (the CT operators are int8, scaled)
@@ -104,14 +142,17 @@ def profile(n, mode, run, wall, info):
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    events = [ev for ev in trace.get("traceEvents", [])
+    trace = trace.get("traceEvents", [])
+    events = [ev for ev in trace
               if ev.get("ph") == "X" and ev.get("cat") in DEVICE_CATS]
     if not events:
         sys.exit(f"n={n} {mode}: the trace holds no device activity")
+    ranges = Ranges(trace)
     kinds = {}
     for ev in events:
-        ms, cnt = kinds.get(kind_of(ev), (0.0, 0))
-        kinds[kind_of(ev)] = (ms + ev["dur"] / 1e3, cnt + 1)
+        kind = kind_of(ev, ranges)
+        ms, cnt = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + ev["dur"] / 1e3, cnt + 1)
     busy_ms = busy_union_us([(ev["ts"], ev["ts"] + ev["dur"])
                              for ev in events]) / 1e3
     print(json.dumps({

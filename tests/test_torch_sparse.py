@@ -188,10 +188,10 @@ def test_rmatvec_without_adjoint_panel_plain_matches_jax_k3():
 
 
 def test_unported_kernels_raise_on_a_device_tensor():
-    """All four kernels are ported, K1 and K3 also in their redesign on the
-    row-packed form that the operator's single-RHS products run, and every
-    wrapper takes only CPU and CUDA tensors: they raise on any other device
-    (the meta device stands in here) and never fall back to their plain
+    """All four kernels are ported, each also in its redesign on the
+    row-packed form that the operator's products run, and every wrapper
+    takes only CPU and CUDA tensors: they raise on any other device (the
+    meta device stands in here) and never fall back to their plain
     versions.  What is still not ported (int4 panels) raises
     ``NotImplementedError`` naming its queue item."""
     op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
@@ -203,12 +203,19 @@ def test_unported_kernels_raise_on_a_device_tensor():
                                                          device="meta"))),
             ("bucket_rmatvec", lambda: tspmv.bucket_rmatvec(
                 op.fwd, torch.zeros(300, device="meta"))),
-            ("bucket_matmat", lambda: op.matmat(torch.zeros((200, 2),
-                                                            device="meta"))),
+            ("row_matmat", lambda: op.matmat(torch.zeros((200, 2),
+                                                         device="meta"))),
+            ("row_matmat", lambda: op.matmat_into(
+                torch.zeros((200, 2), device="meta"),
+                torch.zeros((300, 2), device="meta"))),
+            ("row_rmatmat", lambda: op.rmatmat(torch.zeros(
+                (300, 2), device="meta"))),
+            ("bucket_matmat", lambda: tspmv.bucket_matmat(
+                op.fwd, torch.zeros((200, 2), device="meta"))),
             ("bucket_matvec", lambda: tspmv.bucket_matvec(
                 op.fwd, torch.zeros(200, device="meta"))),
-            ("bucket_rmatmat", lambda: op.rmatmat(torch.zeros(
-                (300, 2), device="meta")))):
+            ("bucket_rmatmat", lambda: tspmv.bucket_rmatmat(
+                op.fwd, torch.zeros((300, 2), device="meta")))):
         with pytest.raises(ValueError, match=f"{name}: unsupported device"):
             call()
     with pytest.raises(NotImplementedError, match="int4"):
@@ -356,7 +363,7 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
                                         with_adjoint=False, device="cpu")
     kernels = (tspmv.bucket_matvec, tspmv.bucket_matmat,
                tspmv.bucket_rmatvec, tspmv.bucket_rmatmat, tspmv.row_matvec,
-               tspmv.row_rmatvec)
+               tspmv.row_rmatvec, tspmv.row_matmat, tspmv.row_rmatmat)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(4)
     b = torch.from_numpy(rng.standard_normal(400))
