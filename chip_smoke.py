@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py             # every phase (one H100, ~5 minutes)
+    python3 chip_smoke.py             # every phase (one H100, ~6 minutes)
     python3 chip_smoke.py --kernels   # build and kernel phases only
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
@@ -23,7 +23,14 @@ Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
     ``lsqr_batched``, ``hybrid_lsqr_batched``, ``lsmr_batched`` (the
     scenario of ``scripts/gkb_batched_bench.py``) through the redesigned K2
     and K4; ``lsqr`` also with ``with_adjoint=True`` (K3 on the form of the
-    adjoint panel).
+    adjoint panel);
+  * the lambda-choice path — the regularize-then-project solvers
+    ``ba_gmres_rtp`` and ``ab_gmres_rtp`` (the redesigned K1, and K2 at
+    R = maxit for AB-RTP's A Q every step), the restarted wrappers, the
+    resumed, bf16-basis and ``history=False`` single solves, the GCV /
+    discrepancy / L-curve selectors (K2 at R = k_gcv and at R = the grid
+    size) and the experiment drivers ``ptr_rtp``, ``regularization`` and
+    ``gcv_surface_exp``.
 
 The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
@@ -77,8 +84,27 @@ Phases:
      with their counts, every column against the port's single-RHS solve,
      an (R,) lambda against the scalar, and a resume 40 -> 100 against the
      uninterrupted run, bit for bit;
-  8. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
-     ``lsqr_batched``; the float64 reference for column 0).
+  8. the lambda-choice path at n=64: BA- and AB-RTP (launches from the
+     code: 301 K1r, and 100 K2r for AB-RTP; the min-over-k error against
+     the same solver in float64 on the host, AB-RTP's reference making one
+     product of A a step; it/s), AB-RTP again with the caller's TF32 on
+     (the flag restored, the history in band, the Gram with and without
+     the full-float32 context against float64); for BA and AB fused a
+     resume 40 -> 100 bit-equal to the uninterrupted run, a bf16 basis,
+     ``history=False``, and a deferred BA solve with TF32 on; the restarted
+     wrappers (20 x 5); every lambda selector against the same call in
+     float64 on the host (a grid step, 1e-3 for Brent, or as good by the
+     float64 objective); the three drivers against the CPU port, with the
+     values of ``figures/results.json`` beside them;
+  9. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
+     ``lsqr_batched``; the float64 reference for column 0; the RTP solvers,
+     ``gcv_lambda("ba", residual_space="original")`` and
+     ``discrepancy_lambda("ba")``).
+
+Phase 3 also holds the redesigned K2 at the lambda path's R and layouts
+(R = 100 and 20 on the transposed view of a column-major basis, R = 80 on a
+row-major block) against its plain version (in column chunks), column j
+bit-equal to the redesigned K1, timed beside the library call and the bound.
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}``, the card's name and power limit, and the
@@ -1270,6 +1296,7 @@ def phase_main_path(P):
     min_err = float(err.min())
     check(min_err <= GATES[n], f"n={n}: min-over-k rel err {min_err:.4f} > "
           f"gate {GATES[n]:.4f}")
+    P.ptr_min = min_err
     ref_diff, min_diff = held_to(err, err_ref, f"n={n}",
                                  "float64 host reference")
     say("main_path", **P.info, maxit=MAXIT, lam=LAM,
@@ -1726,6 +1753,716 @@ def phase_small_reference():
         max_rel_diff=worst)
 
 
+# The multi-RHS products of the lambda-choice path, as (caller, R, layout):
+# AB-RTP's A Q (maxit columns of the masked column-major basis, every
+# step), BA's original-space GCV numerator A Q_k (k_gcv columns of the
+# basis) and the discrepancy principle's candidate residuals A X (a
+# row-major block of the grid size; B X first for "ab").
+LAMBDA_MM = (("AB-RTP A Q", MAXIT, "basis"), ("GCV A Q_k", 20, "basis"),
+             ("discrepancy A X", 80, "block"))
+# The plain multi-RHS version gathers a float64 copy of every nonzero's
+# input row: at n=128 and R=100 that is 20 GB, so it runs on chunks of
+# columns (column j of it is independent of the others, bit for bit).
+PLAIN_CHUNK = 10
+
+
+def plain_in_chunks(plain, rp, X, *args):
+    import torch
+
+    return torch.cat([plain(rp, X[:, j:j + PLAIN_CHUNK], *args)
+                      for j in range(0, X.shape[1], PLAIN_CHUNK)], dim=1)
+
+
+def lambda_mm_inputs(n, R, layout, rng, device):
+    """An (n, R) float32 input in the layout its caller hands K2r: the
+    first R columns of a column-major basis (the transposed view of an
+    (R+1, n) tensor) or a row-major block."""
+    import torch
+
+    V = torch.as_tensor(rng.standard_normal((R + 1, n)), dtype=torch.float32,
+                        device=device)
+    return V.T[:, :R] if layout == "basis" else V[:R].T.contiguous()
+
+
+def lambda_mm_kernels(P):
+    """The redesigned K2 at the R and in the layouts of the lambda-choice
+    path (``LAMBDA_MM``) on the form of A, and at the discrepancy's R on
+    the form of B: against its plain version (in column chunks), column j
+    bit-equal to the redesigned K1 on column j, the library call; timed in
+    turns (plain, kernel, kernel, plain) beside the library call, against
+    the bound from the form's live bytes.  Returns the records."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        _gather_for, _threads_for, row_matmat, row_matmat_plain, row_matvec)
+
+    rng = np.random.default_rng(3)
+    recs = []
+    for tag, op, csr, cases in (("A", P.A_op, P.A_csr, LAMBDA_MM),
+                                ("B", P.B_op, P.B_csr, LAMBDA_MM[2:])):
+        m, n = op.shape
+        rp, scale = op.fwd_rows, op.fwd_scale
+        lib = library_csr(csr)
+        for caller, R, layout in cases:
+            label = f"n={P.n} {tag}: K2 redesigned at R={R} ({caller})"
+            X = lambda_mm_inputs(n, R, layout, rng, op.device)
+            Xc = X.contiguous()
+            want = plain_in_chunks(row_matmat_plain, rp, X, scale)
+            got = row_matmat(rp, X, scale)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (m, R) and
+                  bool(torch.isfinite(got).all()),
+                  f"{label}: output not finite or misshaped")
+            err = rel_err(got, want)
+            check(err <= KERNEL_RTOL, f"{label} vs plain {err:.3e}")
+            col = max(float((got[:, j] - row_matvec(
+                rp, X[:, j].contiguous(), scale)).abs().max())
+                for j in range(R))
+            check(col == 0.0, f"{label}: a column differs from the "
+                  f"redesigned K1 on it by {col:.3e}")
+            lib_diff = rel_err(lib @ Xc, got)
+            check(lib_diff <= LIBRARY_RTOL, f"{label} vs library "
+                  f"{lib_diff:.3e}")
+            run_k = partial(row_matmat, rp, X, scale)
+            run_p = partial(plain_in_chunks, row_matmat_plain, rp, X, scale)
+            # the plain version takes up to a second here: timed once
+            k1, p1, k2 = time_ms(run_k), time_ms(run_p, 1), time_ms(run_k)
+            work = row_work(rp, m, R)
+            b_ms, b_by = bound([work])
+            gather = _gather_for(rp, X)
+            ms = (k1 + k2) / 2
+            rec = dict(
+                panel=f"n={P.n} {tag} int8 form", caller=caller, R=R,
+                layout=("column-major basis" if layout == "basis"
+                        else "row-major block"), shape=list(op.shape),
+                ms=ms, plain_ms=p1,
+                library_ms=time_ms(lambda: lib @ Xc), bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms, work=work,
+                gather=gather, threads=_threads_for(rp, gather),
+                max_abs_err=float((got - want).abs().max()),
+                max_rel_err=err, column_vs_k1_max_diff=col,
+                library_max_rel_diff=lib_diff)
+            say("kernel_vs_plain", kernel="K2 redesigned", **rec)
+            recs.append(rec)
+    return recs
+
+
+RTP_SOLVERS = ("ba_gmres_rtp", "ab_gmres_rtp")
+# Each RTP solver's min-over-k error against its own float64 host reference
+# (bench.py has no RTP anchor), as for the GKB solvers.  At n=128 the
+# reference runs RTP_REF_STEPS steps (each step's solve does not depend on
+# the budget; the minimum lies at k = 6-7 and the history band is REF_K):
+# a host product of A takes ~8x longer there.
+RTP_BAND = 1.01
+RTP_REF_STEPS = 25
+# bf16 storage of the bases and images against the float32 run: the band
+# of the JAX package's own test (tests/test_gmres_api.py:275, rtol and atol).
+BF16_BAND = 5e-3
+# history=False against the final x of the history run: the same
+# factorization and solve at k = maxit, in float32.
+NO_HISTORY_RTOL = 1e-5
+# A Brent-selected lambda against the float64 host run of the same call.
+BRENT_RTOL = 1e-3
+# The single-RHS resume: a solve of this budget continued to MAXIT.
+RESUME_AT = 40
+
+
+def rtp_solver(name):
+    import importlib
+
+    return getattr(importlib.import_module(
+        "hybrid_gmres_tpu_torch.solvers.rtp"), name)
+
+
+def rtp_launches(name, maxit):
+    """(K1r, K2r) launches of one RTP solve, worked out from the code:
+    r0 = B b, then per step the shifted operator B (A q) + lam q (two K1r)
+    and the true residual A x_k (one); AB-RTP adds one K2r per step, A Q on
+    the masked basis."""
+    return 3 * maxit + 1, (maxit if name.startswith("ab") else 0)
+
+
+def host_operators(P):
+    """The float64 host operators of A and B (scipy CSR), made once."""
+    if getattr(P, "host_A", None) is None:
+        P.host_A = scipy_operator(P.A_csr)
+    if getattr(P, "host_B", None) is None:
+        P.host_B = scipy_operator(P.B_csr)
+    return P.host_A, P.host_B
+
+
+def column_cache(op):
+    """``op`` whose ``matmat`` computes only the columns it has not seen
+    (exactly: a column equal to the one it saw at that position is read
+    from the cache; a zero column is zero).  AB-RTP's masked ``A Q`` at
+    step k differs from step k-1's in column k only: with this the host
+    reference makes one product per step, not ``maxit``."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
+
+    class ColumnCache(LinearOperator):
+        dtype, device, shape = op.dtype, op.device, op.shape
+
+        def __init__(self):
+            self.seen, self.images = [], []
+
+        def matvec(self, v):
+            return op.matvec(v)
+
+        def matmat(self, X):
+            cols = []
+            for j in range(X.shape[1]):
+                x = X[:, j]
+                if not bool(x.any()):
+                    cols.append(torch.zeros(op.shape[0], dtype=X.dtype))
+                    continue
+                if j < len(self.seen) and torch.equal(self.seen[j], x):
+                    cols.append(self.images[j])
+                    continue
+                y = op.matvec(x.contiguous())
+                del self.seen[j:], self.images[j:]
+                self.seen.append(x.clone())
+                self.images.append(y)
+                cols.append(y)
+            return torch.stack(cols, dim=1)
+
+    return ColumnCache()
+
+
+def host_reference_rtp(P, name, steps=MAXIT):
+    """RTP solver ``name`` of the port in float64 on the host, ``steps``
+    steps, with the scipy operators of A and B (AB-RTP's through
+    :func:`column_cache`).  Returns the error history."""
+    import torch
+
+    A, B = host_operators(P)
+    if name.startswith("ab"):
+        A = column_cache(A)
+    r = rtp_solver(name)(A, B, torch.from_numpy(P.b_host.astype(np.float64)),
+                         torch.from_numpy(P.prob.x_true[P.pix_perm]),
+                         tol=0.0, maxit=steps, lam=LAM)
+    return r.err_hist.numpy()
+
+
+def counted(run, want, label):
+    """``run()`` with the launch counts reset before and read after, checked
+    against ``want`` (an 8-tuple); returns (result, the launches)."""
+    import torch
+
+    reset_counts()
+    r = run()
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
+          f"expected {want}")
+    return r, launched
+
+
+def k1r_k2r(k1, k2=0):
+    return (0, 0, 0, 0, k1, 0, k2, 0)
+
+
+def finite_result(r, label, nx):
+    import torch
+
+    check(tuple(r.x.shape) == (nx,) and bool(torch.isfinite(r.x).all()),
+          f"{label}: bad solution")
+    k = int(r.niters)
+    check(bool(torch.isfinite(r.err_hist[:k]).all() and
+               torch.isfinite(r.res_hist[:k]).all()),
+          f"{label}: non-finite history entries")
+
+
+def phase_rtp(P, ptr_min, full):
+    """BA- and AB-RTP (maxit=100, lam=1e-2, tol=0) on the CT operators:
+    launch counts from the code, niters, the min-over-k error against the
+    same solver in float64 on the host (gate: that reference's minimum x
+    RTP_BAND; history over the first REF_K steps; the reference runs all
+    maxit steps with ``full``, else RTP_REF_STEPS), it/s from 5 solves,
+    printed beside the PTR solve's minimum.  With ``full``: AB-RTP again
+    with the caller's ``allow_tf32 = True`` (the flag reads True afterwards,
+    the history stays in the float64 band) and the Gram of its final basis
+    with TF32 on and in full float32 against float64.  Returns
+    ``{name: launches}``."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.utils.device import full_float32_matmul
+
+    n, out = P.n, {}
+    for name in RTP_SOLVERS:
+        label = f"n={n} {name}"
+        run = partial(rtp_solver(name), P.A_op, P.B_op, P.b, P.x_true,
+                      tol=0.0, maxit=MAXIT, lam=LAM)
+        with HostSyncs() as syncs:
+            r, launched = counted(run, k1r_k2r(*rtp_launches(name, MAXIT)),
+                                  label)
+        check(int(r.niters) == MAXIT, f"{label}: niters {int(r.niters)}")
+        finite_result(r, label, P.A_op.shape[1])
+        err = r.err_hist.cpu().numpy()
+        t0 = time.perf_counter()
+        steps = MAXIT if full else RTP_REF_STEPS
+        err_ref = host_reference_rtp(P, name, steps)
+        ref_s = time.perf_counter() - t0
+        check(int(err_ref.argmin()) < steps - 1, f"{label}: the float64 "
+              f"reference's minimum lies at its last step ({steps})")
+        gate = float(err_ref.min()) * RTP_BAND
+        check(float(err.min()) <= gate, f"{label}: min-over-k rel err "
+              f"{err.min():.4f} > gate {gate:.4f}")
+        hist, at_min = held_to(err, err_ref, label, "float64 host reference")
+        ms = per_call_ms(run, reps=5)
+        med = float(np.median(ms))
+        rec = dict(n=n, solver=name, maxit=MAXIT, lam=LAM,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+                   host_syncs=syncs.count, min_err=float(err.min()),
+                   min_err_k=int(err.argmin()) + 1,
+                   final_err=float(err[-1]), ptr_min_err=ptr_min,
+                   gate=gate, f64_ref_min_err=float(err_ref.min()),
+                   f64_ref_min_rel_diff=at_min, f64_ref_hist_rel_diff=hist,
+                   f64_ref_steps=steps, f64_ref_s=ref_s, solve_ms_median=med,
+                   solve_ms_min=min(ms), solve_ms_max=max(ms),
+                   iters_per_s=MAXIT / (med / 1e3))
+        if full and name == "ab_gmres_rtp":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                r_t = run()
+                flag = torch.backends.cuda.matmul.allow_tf32
+                AQ = P.A_op.matmat(r.Q[:, :MAXIT])
+                G_tf32 = AQ.T @ AQ
+                with full_float32_matmul():
+                    G_full = AQ.T @ AQ
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            check(flag is True, f"{label}: the caller's allow_tf32 = True "
+                  f"reads {flag} after the solve")
+            err_t = r_t.err_hist.cpu().numpy()
+            h_t, m_t = held_to(err_t, err_ref, label + " with TF32 on",
+                               "float64 host reference")
+            G64 = AQ.double().T @ AQ.double()
+            rec["tf32_on"] = dict(
+                flag_after=flag, min_err=float(err_t.min()),
+                f64_ref_hist_rel_diff=h_t, f64_ref_min_rel_diff=m_t,
+                max_diff_vs_tf32_off=float(np.max(np.abs(err_t - err))),
+                gram_rel_err_tf32=rel_err(G_tf32.double(), G64),
+                gram_rel_err_full_float32=rel_err(G_full.double(), G64))
+        say("rtp_path", **rec)
+        out[name] = launched
+    return out
+
+
+def ptr_solver(name):
+    from hybrid_gmres_tpu_torch.solvers import gmres
+
+    return getattr(gmres, name)
+
+
+def ptr_launches(name, maxit):
+    """K1r launches of one fused PTR solve from x0 = 0, worked out from the
+    code: two per step; BA adds r0 = B b, which a resumed BA solve also
+    makes (the checkpoint holds the factorization, not r0's image), so a
+    resume costs one more K1r than the uninterrupted run."""
+    return 2 * maxit + (1 if name == "ba_gmres" else 0)
+
+
+def phase_gmres_options(P, tf32):
+    """The last branches of ``gmres_core`` on the card, BA and AB fused
+    (lam=1e-2, tol=0): a resume 40 -> 100 bit-equal to the uninterrupted
+    run, with the launches of the two calls against the uninterrupted one's;
+    ``basis_dtype=bfloat16`` (dtypes, the history within BF16_BAND of the
+    float32 run, the gate); ``history=False`` (x against the history run's
+    final x, 2 maxit + 2 launches); with ``tf32`` also a deferred BA solve
+    with the caller's ``allow_tf32 = True`` against the TF32-off run.
+    Returns a record."""
+    import torch
+
+    n, out = P.n, {}
+    nx = P.A_op.shape[1]
+    for name in ("ba_gmres", "ab_gmres"):
+        label = f"n={n} {name}"
+        fn = ptr_solver(name)
+
+        def run(maxit=MAXIT, **kw):
+            return fn(P.A_op, P.B_op, P.b, P.x_true, tol=0.0, maxit=maxit,
+                      lam=LAM, **{"residual": "fused", **kw})
+
+        full, l_full = counted(run, k1r_k2r(ptr_launches(name, MAXIT)),
+                               label)
+        finite_result(full, label, nx)
+        err = full.err_hist.cpu().numpy()
+        part, l_part = counted(partial(run, RESUME_AT),
+                               k1r_k2r(ptr_launches(name, RESUME_AT)),
+                               label + f" maxit={RESUME_AT}")
+        extra = 1 if name == "ba_gmres" else 0
+        resumed, l_res = counted(
+            partial(run, resume_from=part),
+            k1r_k2r(2 * (MAXIT - RESUME_AT) + extra), label + " resumed")
+        diffs = {f: float((getattr(resumed, f).float()
+                           - getattr(full, f).float()).abs().nan_to_num()
+                          .max())
+                 for f in ("x", "res_hist", "err_hist", "H", "Q", "IMG")}
+        same = all(torch.equal(getattr(resumed, f), getattr(full, f))
+                   for f in ("x", "res_hist", "err_hist", "H", "Q", "IMG",
+                             "niters", "active")) and (
+            full.S is None or torch.equal(resumed.S, full.S))
+        check(same, f"{label}: resume {RESUME_AT} -> {MAXIT} differs from "
+              f"the uninterrupted run: {diffs}")
+        check(l_part[4] + l_res[4] == l_full[4] + extra, f"{label}: "
+              f"launches {l_part[4]} + {l_res[4]} against {l_full[4]}")
+
+        rbf, l_bf = counted(partial(run, basis_dtype=torch.bfloat16),
+                            k1r_k2r(ptr_launches(name, MAXIT)),
+                            label + " bf16 basis")
+        bf16 = torch.bfloat16
+        check(rbf.Q.dtype == rbf.IMG.dtype == bf16 and
+              (rbf.S is None or rbf.S.dtype == bf16) and
+              rbf.x.dtype == torch.float32,
+              f"{label} bf16 basis: dtypes {rbf.Q.dtype}, {rbf.IMG.dtype}")
+        finite_result(rbf, label + " bf16 basis", nx)
+        err_bf = rbf.err_hist.cpu().numpy()
+        res, res_bf = full.res_hist.cpu().numpy(), rbf.res_hist.cpu().numpy()
+        band = float(np.max(np.abs(res_bf - res) / (BF16_BAND + BF16_BAND
+                                                     * np.abs(res))))
+        check(band <= 1.0, f"{label} bf16 basis: residual history outside "
+              f"the {BF16_BAND} band of the float32 run ({band:.2f} of it)")
+        check(float(err_bf.min()) <= GATES[n], f"{label} bf16 basis: "
+              f"min-over-k rel err {err_bf.min():.4f} > gate {GATES[n]:.4f}")
+
+        rnh, l_nh = counted(partial(run, history=False, residual="true"),
+                            k1r_k2r(2 * MAXIT + 2), label + " history=False")
+        x_gap = rel_err(rnh.x, full.x)
+        check(x_gap <= NO_HISTORY_RTOL, f"{label} history=False: x vs the "
+              f"history run's final x {x_gap:.2e}")
+        check(int(rnh.niters) == MAXIT and
+              int(torch.isfinite(rnh.res_hist).sum()) == 1,
+              f"{label} history=False: niters {int(rnh.niters)}, recorded "
+              "entries")
+        out[name] = dict(
+            launches_full=l_full[4], launches_part=l_part[4],
+            launches_resumed=l_res[4], resume_equals_uninterrupted=same,
+            min_err=float(err.min()), min_err_k=int(err.argmin()) + 1,
+            bf16_min_err=float(err_bf.min()),
+            bf16_res_hist_max_rel_diff=float(np.max(np.abs(res_bf - res)
+                                                    / res)),
+            bf16_err_hist_max_rel_diff=float(np.max(np.abs(err_bf - err)
+                                                    / err)),
+            bf16_launches=l_bf[4], history_false_launches=l_nh[4],
+            history_false_x_rel_diff=x_gap)
+    if tf32:
+        label = f"n={n} ba_gmres deferred"
+
+        def deferred():
+            return ptr_solver("ba_gmres")(
+                P.A_op, P.B_op, P.b, P.x_true, tol=0.0, maxit=MAXIT,
+                lam=LAM, residual="fused", defer_histories=True)
+
+        off = deferred()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            on = deferred()
+            flag = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        check(flag is True, f"{label}: the caller's allow_tf32 = True reads "
+              f"{flag} after the solve")
+        gaps = {}
+        for f in ("err_hist", "res_hist"):
+            a, d = getattr(off, f).cpu().numpy(), getattr(on, f).cpu().numpy()
+            gaps[f] = max(float(np.max(np.abs(d[:REF_K] - a[:REF_K])
+                                       / a[:REF_K])),
+                          abs(float(d.min() - a.min())) / float(a.min()))
+            check(gaps[f] <= DEFER_RTOL, f"{label}: TF32 on vs off {f} "
+                  f"{gaps[f]:.2e}")
+        out["deferred_tf32_on"] = dict(
+            flag_after=flag, vs_tf32_off=gaps,
+            max_abs_diff=float((on.err_hist - off.err_hist).abs().max()))
+    say("gmres_options", n=n, maxit=MAXIT, lam=LAM, **out)
+    return out
+
+
+def phase_restarted(P):
+    """``ba_gmres_restarted`` and ``ab_gmres_restarted`` (restart=20,
+    max_restarts=5, lam=1e-2, fused): the joined history's length and
+    niters, the gate, the launches from the code (BA: r0 = B b, then
+    B (b - A x0) per later cycle: 2 + 40 launches a cycle but the first; AB:
+    b - A x0 per later cycle)."""
+    from hybrid_gmres_tpu_torch.solvers import gmres
+
+    n, out = P.n, {}
+    restart, cycles = 20, 5
+    for name in ("ba_gmres_restarted", "ab_gmres_restarted"):
+        label = f"n={n} {name}"
+        first = 2 * restart + (1 if name.startswith("ba") else 0)
+        want = first + (cycles - 1) * (2 * restart + 1 + (
+            1 if name.startswith("ba") else 0))
+        r, launched = counted(partial(
+            getattr(gmres, name), P.A_op, P.B_op, P.b, P.x_true,
+            restart=restart, max_restarts=cycles, lam=LAM,
+            residual="fused"), k1r_k2r(want), label)
+        err = r.err_hist.cpu().numpy()
+        check(int(r.niters) == restart * cycles and
+              err.shape == (restart * cycles,) and
+              bool(np.isfinite(err).all()), f"{label}: niters "
+              f"{int(r.niters)}, history {err.shape}")
+        check(float(err.min()) <= GATES[n], f"{label}: min-over-k rel err "
+              f"{err.min():.4f} > gate {GATES[n]:.4f}")
+        out[name] = dict(launches=launched[4], niters=int(r.niters),
+                         min_err=float(err.min()),
+                         min_err_k=int(err.argmin()) + 1,
+                         final_err=float(err[-1]))
+    say("restarted", n=n, restart=restart, max_restarts=cycles, lam=LAM,
+        gate=GATES[n], **out)
+
+
+def grid_steps(grid, got, want):
+    """How many steps of the log grid ``grid`` lie between two lambdas."""
+    ratio = np.log(grid[1] / grid[0])
+    return abs(float(np.log(float(got) / float(want)))) / ratio
+
+
+def noise_norm(P):
+    """||e||: the norm of the noise in the sinogram (seed 0)."""
+    b_exact = P.prob.b_exact.astype(np.float32)[P.ray_perm]
+    return float(np.linalg.norm(P.b_host.astype(np.float64) - b_exact))
+
+
+# Where a selection differs from the float64 host call's, it must be as good
+# by the float64 objective: the GCV value at the card's lambda within
+# FLAT_RTOL of the value at the host's (the CT objectives are flat: BA's
+# projected GCV varies by 1e-8 over [1e-3, 0.1] at n=64), the L-curve's
+# float64 error within LCURVE_FLAT_RTOL.  The L-curve reads the error of
+# the final iterate (k = 32), where float32 and float64 have drifted apart
+# by up to 6.4e-3 (measured on CT n=64, AB) and the error curve over lambda
+# is flatter than that.
+FLAT_RTOL = 1e-6
+LCURVE_FLAT_RTOL = 1e-2
+
+
+def phase_lambda_choice(P, full):
+    """The lambda selectors on the card against the same calls of the port
+    in float64 on the host (the scipy operators of A and B): every grid
+    method's lambda within one grid step and Brent's within BRENT_RTOL, or
+    as good by the float64 objective (FLAT_RTOL, LCURVE_FLAT_RTOL); the
+    launches from the code.  ``full``: ``gcv_lambda`` "ba" in both residual
+    spaces, ``gcv_curve`` and ``gcv_surface`` "ba" (k = 1..20, 30
+    lambdas), ``discrepancy_lambda`` "ab" and "ba" (delta = the noise norm,
+    tau = 1.02, 80 lambdas) and ``lcurve_sweep`` "ab" and "ba" (8 lambdas,
+    maxit=32); else ``gcv_lambda("ba", residual_space="original")`` and
+    ``discrepancy_lambda("ba")``."""
+    import torch
+
+    from hybrid_gmres_tpu_torch import reg
+
+    n, k = P.n, 20
+    A64, B64 = host_operators(P)
+    b64 = torch.from_numpy(P.b_host.astype(np.float64))
+    x64 = torch.from_numpy(P.prob.x_true[P.pix_perm])
+    delta = noise_norm(P)
+    out = dict(n=n, k_gcv=k, delta=delta, flat_rtol=FLAT_RTOL)
+    arnoldi_ba = 2 * k + 1                  # r0 = B b, then A and B
+    gcv_grid = np.logspace(-8, -1, 50)
+    surf_grid = np.logspace(-8, -1, 30)
+    disc_grid = np.logspace(-9, 0, 80)
+    lc_grid = np.logspace(-10, 0, 8)
+
+    def brent(space):
+        return lambda A, B, b, x: reg.gcv_lambda(
+            "ba", A, B, b, k_gcv=k, residual_space=space)[0]
+
+    def objective(space, lams):
+        """The float64 host objective at ``lams``."""
+        return reg.gcv_curve("ba", A64, B64, b64, k, np.asarray(lams),
+                             residual_space=space).numpy()
+
+    # (label, kind, launches, call, grid, residual space)
+    calls = [("gcv_lambda ba original", "brent", k1r_k2r(arnoldi_ba, 1),
+              brent("original"), None, "original"),
+             ("discrepancy_lambda ba", "grid", k1r_k2r(arnoldi_ba, 1),
+              lambda A, B, b, x: reg.discrepancy_lambda(
+                  "ba", A, B, b, delta, k=k, lam_grid=disc_grid)[0],
+              disc_grid, None)]
+    if full:
+        calls += [
+            ("gcv_lambda ba projected", "brent", k1r_k2r(arnoldi_ba),
+             brent("projected"), None, "projected"),
+            ("gcv_curve ba original", "curve", k1r_k2r(arnoldi_ba, 1),
+             lambda A, B, b, x: reg.gcv_curve(
+                 "ba", A, B, b, k, gcv_grid, residual_space="original"),
+             gcv_grid, "original"),
+            ("gcv_surface ba", "surface", k1r_k2r(arnoldi_ba),
+             lambda A, B, b, x: reg.gcv_surface(
+                 "ba", A, B, b, range(1, k + 1), surf_grid)[0], surf_grid,
+             "projected"),
+            ("discrepancy_lambda ab", "grid", k1r_k2r(2 * k, 2),
+             lambda A, B, b, x: reg.discrepancy_lambda(
+                 "ab", A, B, b, delta, k=k, lam_grid=disc_grid)[0],
+             disc_grid, None),
+            # per lambda: r0 (BA), the residual="true" solve's 3 (BA) or 4
+            # (AB) products a step, and the sweep's own A x
+            ("lcurve_sweep ba", "lcurve", k1r_k2r(8 * (1 + 3 * 32 + 1)),
+             lambda A, B, b, x: reg.lcurve_sweep(
+                 "ba", A, B, b, x, lc_grid, maxit=32).err_norms,
+             lc_grid, None),
+            ("lcurve_sweep ab", "lcurve", k1r_k2r(8 * (4 * 32 + 1)),
+             lambda A, B, b, x: reg.lcurve_sweep(
+                 "ab", A, B, b, x, lc_grid, maxit=32).err_norms,
+             lc_grid, None)]
+    for label, kind, want, call, grid, space in calls:
+        t0 = time.perf_counter()
+        got, launched = counted(
+            partial(call, P.A_op, P.B_op, P.b, P.x_true), want,
+            f"n={n} {label}")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = call(A64, B64, b64, x64)
+        host_s = time.perf_counter() - t0
+        rec = dict(launches_k1r_k2r=(launched[4], launched[6]),
+                   card_s=card_s, host_f64_s=host_s)
+        if kind == "brent":
+            gap = abs(got - ref) / ref
+            vals = objective(space, [got, ref])
+            worse = float((vals[0] - vals[1]) / vals[1])
+            check(gap <= BRENT_RTOL or worse <= FLAT_RTOL, f"n={n} {label}: "
+                  f"lambda {got!r} vs {ref!r} in float64 on the host "
+                  f"({gap:.2e}), float64 objective {worse:.2e} worse")
+            rec.update(lam=got, lam_f64=ref, rel_diff=gap,
+                       f64_objective_rel_excess=worse)
+        elif kind == "grid":
+            steps = grid_steps(grid, float(got), float(ref))
+            check(steps <= 1.0 + 1e-6, f"n={n} {label}: lambda {float(got)} "
+                  f"vs {float(ref)} in float64 ({steps:.2f} grid steps)")
+            rec.update(lam=float(got), lam_f64=float(ref), grid_steps=steps)
+        else:
+            # argmin over the grid (per k for the surface), against the
+            # float64 values of the host call
+            # a NaN error is no optimum (as in lcurve_sweep)
+            vals = np.nan_to_num(got.cpu().double().numpy(), nan=np.inf)
+            ref_vals = ref.numpy()
+            if vals.ndim == 1:
+                vals, ref_vals = vals[:, None], ref_vals[:, None]
+            i_card, i_host = vals.argmin(0), ref_vals.argmin(0)
+            cols = np.arange(vals.shape[1])
+            steps = np.abs(i_card - i_host)
+            worse = (ref_vals[i_card, cols] - ref_vals[i_host, cols]) / \
+                ref_vals[i_host, cols]
+            flat = LCURVE_FLAT_RTOL if kind == "lcurve" else FLAT_RTOL
+            bad = (steps > 1) & (worse > flat)
+            check(not bad.any(), f"n={n} {label}: argmin {i_card.tolist()} "
+                  f"vs {i_host.tolist()} in float64, float64 value "
+                  f"{worse.tolist()} worse")
+            finite = np.isfinite(vals)
+            rec.update(lam=grid[i_card].tolist(),
+                       lam_f64=grid[i_host].tolist(),
+                       grid_steps=steps.tolist(),
+                       f64_value_rel_excess=float(worse.max()),
+                       not_finite=int((~finite).sum()),
+                       values_max_rel_diff=float(np.max(
+                           np.abs(vals - ref_vals)[finite]
+                           / ref_vals[finite])))
+        out[label] = rec
+    say("lambda_choice", **out)
+
+
+# figures/results.json: the JAX package's float64 runs of the drivers
+RESULTS_JSON = {"ptr_rtp": ("ba_ptr", "ba_rtp", "ab_ptr", "ab_rtp"),
+                "regularization": ("gcv_lambda_ab", "gcv_lambda_ba"),
+                "gcv_surface": ("path_ab_last", "path_ba_last")}
+DRIVER_RTOL = 1e-4
+
+
+def as_good(grid, got, want, values, flat):
+    """(grid steps between two selections, how much worse ``values`` (an
+    array over ``grid``, the host's float64 objective) is at ``got`` than
+    at ``want``); a selection passes within one step or ``flat``."""
+    i, j = (int(np.argmin(np.abs(np.log(grid / v)))) for v in (got, want))
+    steps = grid_steps(grid, got, want)
+    worse = float((values[i] - values[j]) / values[j])
+    check(steps <= 1.0 + 1e-6 or worse <= flat, f"{got!r} vs {want!r}: "
+          f"{steps:.2f} grid steps, float64 objective {worse:.2e} worse")
+    return steps, worse
+
+
+def phase_drivers(device="cuda"):
+    """The three experiment drivers of the lambda-choice path at their
+    default configurations, on the card against the same driver on the
+    CPU port (float32 both): the error histories over the first REF_K
+    steps to DRIVER_RTOL; every selected lambda within one grid step, or
+    as good by the CPU run's objective (LCURVE_FLAT_RTOL for the L-curve's
+    error, FLAT_RTOL for the GCV surface, whose per-k path is held over
+    the first REF_K k: past them the float32 factorizations of shaw drift
+    apart, as the histories do); the values of ``figures/results.json``
+    (the JAX package's float64 runs) printed beside them."""
+    import os
+
+    from hybrid_gmres_tpu_torch.experiments import (gcv_surface_exp,
+                                                    ptr_rtp, regularization)
+    from hybrid_gmres_tpu_torch.experiments.common import host as to_host
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "figures", "results.json")
+    with open(path) as f:
+        results = json.load(f)
+    out = {}
+    for name, module in (("ptr_rtp", ptr_rtp),
+                         ("regularization", regularization),
+                         ("gcv_surface", gcv_surface_exp)):
+        t0 = time.perf_counter()
+        card = module.run(module.Config(device=device))
+        card_s = time.perf_counter() - t0
+        host = module.run(module.Config(device="cpu"))
+        rec = dict(card_s=card_s, results_json={
+            k: results[name][k] for k in RESULTS_JSON[name]})
+        if name == "ptr_rtp":
+            for k, h in host.err_hists.items():
+                c = card.err_hists[k]
+                gap = float(np.max(np.abs(c[:REF_K] - h[:REF_K]) / h[:REF_K]))
+                check(c.shape == h.shape and gap <= DRIVER_RTOL,
+                      f"driver ptr_rtp {k}: card vs CPU {gap:.2e}, lengths "
+                      f"{c.shape} {h.shape}")
+                rec[k] = dict(final_err=float(c[-1]),
+                              final_err_cpu=float(h[-1]), hist_rel_diff=gap,
+                              full_hist_rel_diff=float(
+                                  np.max(np.abs(c - h) / h)))
+            check(float(np.max(np.abs(card.err_hists["ba_ptr"]
+                                      - card.err_hists["ba_rtp"]))) > 1e-3,
+                  "driver ptr_rtp: PTR and RTP agree on the card")
+        elif name == "regularization":
+            cfg = host.cfg
+            grid = np.logspace(np.log10(cfg.lam_lo), np.log10(cfg.lam_hi),
+                               cfg.n_lambda)
+            for v in ("ab", "ba"):
+                c, h = card.gcv_lambdas[v], host.gcv_lambdas[v]
+                steps = grid_steps(grid, c, h)
+                check(steps <= 1.0 + 1e-6, f"driver regularization {v} "
+                      f"gcv_lambda: {c!r} vs {h!r} on the CPU ({steps:.2f} "
+                      "grid steps)")
+                rec[f"gcv_lambda_{v}"] = dict(card=c, cpu=h,
+                                              grid_steps=steps)
+                c = float(card.sweeps[v].lam_true_opt)
+                h = float(host.sweeps[v].lam_true_opt)
+                steps, worse = as_good(grid, c, h,
+                                       to_host(host.sweeps[v].err_norms),
+                                       LCURVE_FLAT_RTOL)
+                rec[f"lam_true_opt_{v}"] = dict(card=c, cpu=h,
+                                                grid_steps=steps,
+                                                cpu_err_rel_excess=worse)
+        else:
+            for v in ("ab", "ba"):
+                steps = [grid_steps(card.lam_grid, c, h) for c, h in
+                         zip(card.paths[v], host.paths[v])]
+                excess = [as_good(card.lam_grid, c, h,
+                                  host.surfaces[v][:, j], FLAT_RTOL)[1]
+                          for j, (c, h) in enumerate(zip(
+                              card.paths[v][:REF_K], host.paths[v][:REF_K]))]
+                rec[f"path_{v}"] = dict(
+                    last=float(card.paths[v][-1]),
+                    last_cpu=float(host.paths[v][-1]),
+                    max_grid_steps_first_k=max(steps[:REF_K]),
+                    max_cpu_objective_rel_excess_first_k=max(excess),
+                    max_grid_steps=max(steps))
+        out[name] = rec
+    say("drivers", **out)
+
+
 def kernel_record(name, source, replaces, launches, path_recs, other_recs,
                   superseded_by=None):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
@@ -1748,6 +2485,21 @@ def kernel_record(name, source, replaces, launches, path_recs, other_recs,
         shapes=path_recs + other_recs)
 
 
+def phase_lambda_path(P, full):
+    """The lambda-choice path at one size: the RTP solvers, then (``full``)
+    the last branches of gmres_core, the restarted wrappers, every lambda
+    selector and the three experiment drivers; otherwise the n=128 subset
+    (``phase_lambda_choice``).  Returns the RTP solvers' launches."""
+    rtp = phase_rtp(P, P.ptr_min, full)
+    if full:
+        phase_gmres_options(P, tf32=True)
+        phase_restarted(P)
+    phase_lambda_choice(P, full=full)
+    if full:
+        phase_drivers()
+    return rtp
+
+
 def main():
     card = phase_device()
     import torch
@@ -1756,11 +2508,14 @@ def main():
     P = make_problem(64, adjoint=True)
     k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
         phase_ct_kernels(P)
+    lmm_64 = lambda_mm_kernels(P)
     phase_small_kernels()
     if "--kernels" in sys.argv[1:]:      # a short call: builds and kernels
         del P
         torch.cuda.empty_cache()
-        phase_ct_kernels(make_problem(128, adjoint=True))
+        P = make_problem(128, adjoint=True)
+        phase_ct_kernels(P)
+        lambda_mm_kernels(P)
         say("stopped", after="kernels")
         return
     phase_small_reference()
@@ -1771,11 +2526,13 @@ def main():
                               {k: v[2] for k, v in gkb.items()}, full=True)
     lsqr_launches = gkb["lsqr"][0]
     lsqr_b_launches = gkb_b["lsqr_batched"]
+    phase_lambda_path(P, full=True)
     del P
     torch.cuda.empty_cache()
     P = make_problem(128, adjoint=True)
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
+    lmm_128 = lambda_mm_kernels(P)
     P.A_adj = P.B_adj = None        # the n=128 solves need forward panels
     torch.cuda.empty_cache()
     _, its, ref0 = phase_main_path(P)
@@ -1783,6 +2540,7 @@ def main():
     gkb = phase_gkb_path(P, ("lsqr",))
     phase_gkb_serving(P, ("lsqr_batched",),
                       {k: v[2] for k, v in gkb.items()}, full=False)
+    phase_lambda_path(P, full=False)
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
@@ -1793,7 +2551,8 @@ def main():
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
                       main_launches[4], k1r_64, k1r_128),
         kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
-                      serving_launches[6], k2r_64, k2r_128),
+                      serving_launches[6], k2r_64,
+                      k2r_128 + lmm_64 + lmm_128),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
                       lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128),
         kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",

@@ -4,11 +4,13 @@ The JAX package beside it is the reference; this package mirrors its module
 paths and public names so each counterpart is easy to find.  It imports
 ``torch``, ``numpy`` and ``scipy`` only — never ``jax``.
 
-On the CUDA path the bucketed block-ELL products run as hand-written Hopper
-kernels (``csrc/bucket_spmv.cu``, ``csrc/bucket_spmm.cu`` and, for the
-transposed products from the same panel, ``csrc/bucket_rspmv.cu``, built
-with ``nvcc`` at first use); on CPU tensors every operator uses its plain
-PyTorch version.  Constructors build on the card unless given ``device="cpu"``.
+On the CUDA path every sparse product runs as a hand-written Hopper kernel
+on the operator's row-packed forms: ``csrc/row_spmv.cu`` (SpMV, SpMM and
+their transposed twins, built with ``nvcc`` at first use).  The block-ELL
+kernels of the earlier ports (``csrc/bucket_*.cu``) stay as checked
+counterparts of the Pallas kernels on no solver's path.  On CPU tensors
+every operator uses its plain PyTorch version.  Constructors build on the
+card unless given ``device="cpu"``.
 
 Imports are lazy: ``import hybrid_gmres_tpu_torch`` loads no solver until a
 name below is first used.
@@ -31,6 +33,9 @@ _EXPORTS = {
     "ct_mismatched": "hybrid_gmres_tpu_torch.problems.ct",
     "ct_gpu_operators": "hybrid_gmres_tpu_torch.problems.ct",
     "generate_test_problem": "hybrid_gmres_tpu_torch.problems.onedim",
+    "shaw": "hybrid_gmres_tpu_torch.problems.onedim",
+    "heat": "hybrid_gmres_tpu_torch.problems.onedim",
+    "deriv2": "hybrid_gmres_tpu_torch.problems.onedim",
     "GMRESResult": "hybrid_gmres_tpu_torch.solvers.common",
     "GKBResult": "hybrid_gmres_tpu_torch.solvers.common",
     "GKBState": "hybrid_gmres_tpu_torch.solvers.common",
@@ -43,8 +48,21 @@ _EXPORTS = {
     "lsmr_batched": "hybrid_gmres_tpu_torch.solvers.gkb_batched",
     "ab_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
     "ba_gmres": "hybrid_gmres_tpu_torch.solvers.gmres",
+    "ab_gmres_restarted": "hybrid_gmres_tpu_torch.solvers.gmres",
+    "ba_gmres_restarted": "hybrid_gmres_tpu_torch.solvers.gmres",
+    "ab_gmres_rtp": "hybrid_gmres_tpu_torch.solvers.rtp",
+    "ba_gmres_rtp": "hybrid_gmres_tpu_torch.solvers.rtp",
     "ab_gmres_batched": "hybrid_gmres_tpu_torch.solvers.batched",
     "ba_gmres_batched": "hybrid_gmres_tpu_torch.solvers.batched",
+    "gcv_from_H": "hybrid_gmres_tpu_torch.reg.gcv",
+    "gcv_factors": "hybrid_gmres_tpu_torch.reg.gcv",
+    "gcv_from_factors": "hybrid_gmres_tpu_torch.reg.gcv",
+    "gcv_curve": "hybrid_gmres_tpu_torch.reg.gcv",
+    "gcv_surface": "hybrid_gmres_tpu_torch.reg.gcv",
+    "gcv_lambda": "hybrid_gmres_tpu_torch.reg.gcv",
+    "minimize_scalar_bounded": "hybrid_gmres_tpu_torch.reg.gcv",
+    "discrepancy_lambda": "hybrid_gmres_tpu_torch.reg.discrepancy",
+    "lcurve_sweep": "hybrid_gmres_tpu_torch.reg.lcurve",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1,5 +1,6 @@
 from hybrid_gmres_tpu_torch.krylov.arnoldi import (
     ArnoldiState,
+    arnoldi,
     arnoldi_orthogonalize,
     arnoldi_step,
 )
@@ -11,6 +12,7 @@ from hybrid_gmres_tpu_torch.krylov.projected import (
 
 __all__ = [
     "ArnoldiState",
+    "arnoldi",
     "arnoldi_orthogonalize",
     "arnoldi_step",
     "projected_gram_tikhonov_solve",

@@ -21,7 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from hybrid_gmres_tpu_torch.utils.device import scalar_tensor
+from hybrid_gmres_tpu_torch.utils.device import (
+    full_float32_matmul,
+    scalar_tensor,
+)
 
 
 def _over(v, ndim: int):
@@ -61,15 +64,19 @@ def projected_ls_solve(H, t, kdim):
 
 def projected_tikhonov_solve(H, t, lam, kdim):
     """Tikhonov-projected solve ``(H'H + lam I) y = H' t`` on the active
-    block (the reference's shifted normal equations), by Cholesky."""
+    block (the reference's shifted normal equations), by Cholesky.  The
+    Gram ``H'H`` squares the conditioning, so it is formed in full float32
+    whatever the caller set for TF32 (:func:`full_float32_matmul`)."""
     maxit = H.shape[-1]
     dtype, device = H.dtype, H.device
     H = mask_columns(H, kdim)
     active = _active(maxit, kdim, device)
     lam = _over(scalar_tensor(lam, dtype, device), 2)
-    G = H.mT @ H + lam * torch.eye(maxit, dtype=dtype, device=device) + \
+    with full_float32_matmul():
+        HtH = H.mT @ H
+        rhs = H.mT @ t[..., None]
+    G = HtH + lam * torch.eye(maxit, dtype=dtype, device=device) + \
         torch.diag_embed((~active).to(dtype))
-    rhs = H.mT @ t[..., None]
     L, _ = torch.linalg.cholesky_ex(G)
     y = torch.cholesky_solve(rhs, L)[..., 0]
     return torch.where(active, y, torch.zeros((), dtype=dtype, device=device))

@@ -38,6 +38,7 @@ from hybrid_gmres_tpu_torch.utils.checkpoint import (
     check_fingerprint,
     resume_fingerprint,
 )
+from hybrid_gmres_tpu_torch.utils.device import full_float32_matmul
 
 
 def _make_select_lam(trace_dim, gcv_grid):
@@ -275,13 +276,15 @@ def _batched_core_deferred(first_mm, second_mm, r0, rhs, b_norm,
         Y = project_solve(Hk, tk, ks[:, None])           # (k, R, maxit)
     Yb = Y.permute(1, 0, 2)                              # (R, k, maxit)
 
-    # full float32 products (TF32 off): the one-time post-loop products
+    # full float32 whatever the caller set: the one-time post-loop products
     # must reproduce the in-loop per-iteration ones
-    RES = rhs_b[:, None, :] - torch.bmm(Yb, IMGb)        # (R, k, m_img)
-    res_full = (torch.linalg.vector_norm(RES, dim=2) / b_norm[:, None]).T
-    del RES
-    basis = Sb if solution == "image" else Qb[:, :maxit]
-    X = torch.bmm(Yb, basis)                             # (R, k, nx)
+    with full_float32_matmul():
+        RES = rhs_b[:, None, :] - torch.bmm(Yb, IMGb)    # (R, k, m_img)
+        res_full = (torch.linalg.vector_norm(RES, dim=2)
+                    / b_norm[:, None]).T
+        del RES
+        basis = Sb if solution == "image" else Qb[:, :maxit]
+        X = torch.bmm(Yb, basis)                         # (R, k, nx)
     if x_off_b is not None:
         X = X + x_off_b[:, None, :]
     err_full = (torch.linalg.vector_norm(X - xt_b[:, None, :], dim=2)

@@ -18,9 +18,16 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from hybrid_gmres_tpu_torch.krylov.arnoldi import (
+    arnoldi,
     arnoldi_orthogonalize,
     arnoldi_step,
+    column_major,
 )
+from hybrid_gmres_tpu_torch.utils.checkpoint import (
+    check_resumable,
+    pad_state,
+)
+from hybrid_gmres_tpu_torch.utils.device import full_float32_matmul
 
 
 class FusedResidual(NamedTuple):
@@ -84,22 +91,11 @@ class GKBResult(NamedTuple):
     state: Optional[GKBState] = None        # resume checkpoint (GKB family)
 
 
-def _todo(option, item):
-    return NotImplementedError(
-        f"{option} is not ported yet: see ROADMAP queue 1, {item}")
-
-
-def _column_major(rows, cols, dtype, device):
-    """Zero (rows, cols) tensor stored column by column: a column read or
-    write (the per-step access of the bases) touches contiguous memory."""
-    return torch.zeros((cols, rows), dtype=dtype, device=device).T
-
-
 def gmres_core(
     krylov_mv: Callable,
     r0: torch.Tensor,
     project_solve: Callable,  # (H, Q, t, kdim) -> padded y of length maxit
-    solution_fn: Callable,    # (Q, y) -> x
+    solution_fn: Callable,    # (Q, y) -> x from Q's first len(y) columns
     residual_fn: Callable,    # x -> relative residual
     error_fn: Callable,       # x -> relative error (may return NaN)
     maxit: int,
@@ -114,62 +110,143 @@ def gmres_core(
     defer_histories: bool = False,
     basis_dtype=None,
 ) -> GMRESResult:
-    """Generic preconditioned GMRES loop shared by AB/BA x {non,}hybrid.
+    """Generic preconditioned GMRES loop shared by AB/BA x {non,}hybrid x
+    PTR/RTP.
 
     Arnoldi expand -> projected solve -> residual/error tracking -> stop on
     ``res <= tol`` or breakdown (``BAgmres_hybrid_bounds.m:24-80``), as a
-    fixed ``maxit``-step loop with an active mask.
+    fixed ``maxit``-step loop with an active mask.  With ``history=False``
+    the per-iteration solves are skipped: :func:`arnoldi`, then one
+    projected solve, one residual and one error, recorded in slot
+    ``nsteps-1`` of NaN histories (benchmark mode).
 
     ``residual``: "true" recomputes ``||b - A x_k||`` with an explicit
     matvec; "estimate" uses the projected LS residual
     ``||t - Hbar y|| / beta``; "fused" computes the true residual from the
     stored per-step images (see :class:`FusedResidual`), no extra SpMV.
+
+    ``resume_from``: a result of the same solve with a smaller (or equal)
+    ``maxit``; the loop continues its factorization from step ``niters``,
+    so ``resume(run(maxit=k), maxit=K)`` equals ``run(maxit=K)``.
+
+    ``basis_dtype`` (fused only): storage dtype of ``Q``, ``IMG`` and ``S``,
+    e.g. ``torch.bfloat16``; every product reads the stored columns upcast
+    to the working dtype, so only the stored values are rounded.
+
+    ``defer_histories`` (fused only): the loop runs only the Arnoldi
+    expansion; the per-k projected solves are one batched solve after it and
+    the histories two products (see :func:`_gmres_core_deferred`).
     """
     if residual not in ("true", "estimate", "fused"):
         raise ValueError("residual must be 'true', 'estimate' or 'fused'")
-    if basis_dtype is not None:
-        raise _todo("basis_dtype", "item 5b")
-    if not history:
-        raise _todo("history=False", "item 5b")
-    if resume_from is not None:
-        raise _todo("single-RHS resume_from", "item 5c (the batched solvers "
-                    "resume; utils/checkpoint.py is ported)")
-    if defer_histories and residual != "fused":
-        raise ValueError("defer_histories requires residual='fused'")
-    if residual == "fused" and fused is None:
-        raise ValueError("residual='fused' requires a FusedResidual spec")
+    if basis_dtype is not None and residual != "fused":
+        raise ValueError("basis_dtype requires residual='fused' (the "
+                         "production path; other modes hand basis columns "
+                         "straight to the operator)")
+    if defer_histories:
+        if residual != "fused":
+            raise ValueError("defer_histories requires residual='fused'")
+        if resume_from is not None or not history:
+            raise ValueError("defer_histories requires history=True and no "
+                             "resume_from")
+    if residual == "fused":
+        if fused is None:
+            raise ValueError("residual='fused' requires a FusedResidual spec")
+        if not history:
+            raise ValueError("residual='fused' requires history=True (with "
+                             "history=False only one final residual is "
+                             "computed; use residual='true')")
+        if resume_from is not None and resume_from.IMG is None:
+            raise ValueError(
+                "residual='fused' resume needs a checkpoint from a fused "
+                "run (resume_from.IMG is the stored image basis)")
 
     dtype, device = r0.dtype, r0.device
+    bdt = dtype if basis_dtype is None else basis_dtype
     like = dict(dtype=dtype, device=device)
     n = r0.shape[0]
-    beta = torch.linalg.vector_norm(r0)
-    beta_safe = torch.where(beta > 0, beta, torch.ones((), **like))
-    Q = _column_major(n, maxit + 1, dtype, device)
-    Q[:, 0] = torch.where(beta > 0, r0 / beta_safe, torch.zeros_like(r0))
-    H = torch.zeros((maxit + 1, maxit), **like)
-    x = (torch.zeros((x_shape,), **like) if x_init is None
-         else torch.as_tensor(x_init, **like).clone())
+    nan = torch.full((), float("nan"), **like)
+
+    if not history:
+        if resume_from is not None:
+            raise ValueError("resume_from requires history=True")
+        beta = torch.linalg.vector_norm(r0)
+        t = torch.zeros((maxit + 1,), **like)
+        t[0] = beta
+        Q, H, beta_, nsteps = arnoldi(krylov_mv, r0, maxit, breakdown_tol)
+        y = project_solve(H, Q, t, nsteps)
+        x = solution_fn(Q, y)
+        ok = nsteps > 0
+        slot = torch.clamp(nsteps - 1, min=0).long().reshape(1)
+        hists = []
+        for val in (residual_fn(x), error_fn(x)):
+            hist = torch.full((maxit,), float("nan"), **like)
+            hists.append(hist.index_copy_(
+                0, slot, torch.where(ok, val, nan).reshape(1)))
+        return GMRESResult(x, hists[1], hists[0], nsteps, Q, H, beta_)
+
+    res_hist = torch.full((maxit,), float("nan"), **like)
+    err_hist = torch.full((maxit,), float("nan"), **like)
+    Q = column_major(n, maxit + 1, bdt, device)
+    if residual == "fused":
+        IMG = column_major(fused.rhs.shape[0], maxit, bdt, device)
+        S = (column_major(x_shape, maxit, bdt, device)
+             if fused.solution_from_image else None)
+    else:
+        IMG = S = None
+    if resume_from is not None:
+        # Continue the Arnoldi recurrence from a saved factorization
+        # (utils/checkpoint.py), copied into this solve's own tensors (the
+        # loop writes in place): identical numbers to an uninterrupted run.
+        check_resumable(resume_from)
+        rs = pad_state(resume_from, maxit)
+        k0 = int(resume_from.niters)
+        beta = rs.beta.to(**like)
+        Q.copy_(rs.Q)
+        H = rs.H.to(**like).clone()
+        x = rs.x.to(**like)
+        res_hist[:k0] = rs.res_hist[:k0]
+        err_hist[:k0] = rs.err_hist[:k0]
+        if residual == "fused":
+            IMG.copy_(rs.IMG)
+            if S is not None:
+                if rs.S is None:
+                    raise ValueError("fused resume of an image-composed (AB) "
+                                     "run needs resume_from.S")
+                S.copy_(rs.S)
+        # A run that exhausted its budget resumes active; one that STOPPED
+        # (tol or breakdown) resumes inactive.  The checkpointed flag decides;
+        # legacy checkpoints fall back on niters == budget, which cannot
+        # tell a stop ON the final iteration apart.
+        if resume_from.active is not None:
+            active = torch.as_tensor(resume_from.active, device=device).to(
+                torch.bool).clone()
+        else:
+            active = torch.tensor(k0 == resume_from.res_hist.shape[0],
+                                  device=device)
+    else:
+        k0 = 0
+        beta = torch.linalg.vector_norm(r0)
+        beta_safe = torch.where(beta > 0, beta, torch.ones((), **like))
+        Q[:, 0] = torch.where(beta > 0, r0 / beta_safe, torch.zeros_like(r0))
+        H = torch.zeros((maxit + 1, maxit), **like)
+        x = (torch.zeros((x_shape,), **like) if x_init is None
+             else torch.as_tensor(x_init, **like).clone())
+        active = beta > 0
     t = torch.zeros((maxit + 1,), **like)
     t[0] = beta
     if defer_histories:
         return _gmres_core_deferred(
             fused, project_solve, solution_fn, error_fn, maxit, tol,
-            x_shape, breakdown_tol, Q, H, t, beta)
-    IMG = S = None
-    if residual == "fused":
-        IMG = _column_major(fused.rhs.shape[0], maxit, dtype, device)
-        if fused.solution_from_image:
-            S = _column_major(x_shape, maxit, dtype, device)
+            x_shape, breakdown_tol, Q, H, t, beta, bdt)
 
-    res_hist = torch.full((maxit,), float("nan"), **like)
-    err_hist = torch.full((maxit,), float("nan"), **like)
-    nan = torch.full((), float("nan"), **like)
-    active = beta > 0
-    niters = torch.zeros((), dtype=torch.int32, device=device)
+    def upcast(M):
+        return M if M.dtype == dtype else M.to(dtype)
 
-    for k in range(maxit):
+    niters = torch.full((), k0, dtype=torch.int32, device=device)
+    for k in range(k0, maxit):
         if residual == "fused":
-            u = fused.first_mv(Q[:, k])
+            u = fused.first_mv(upcast(Q[:, k]))
             w = fused.second_mv(u)
             IMG[:, k] = u if fused.img == "first" else w
             if fused.solution_from_image:
@@ -179,17 +256,23 @@ def gmres_core(
             st = arnoldi_step(krylov_mv, Q, H, k, breakdown_tol, active)
         kdim = k + 1
         y = project_solve(H, Q, t, kdim)
+        # the products read the kdim set columns (y is zero beyond them):
+        # shapes that depend on k alone, as in arnoldi_orthogonalize
+        yk = y[:kdim]
         if residual == "fused" and fused.solution_from_image:
-            xk = S @ y if fused.x_offset is None else fused.x_offset + S @ y
+            xk = upcast(S[:, :kdim]) @ yk
+            if fused.x_offset is not None:
+                xk = fused.x_offset + xk
         else:
-            xk = solution_fn(Q, y)
+            xk = solution_fn(Q[:, :kdim], yk)
         if residual == "true":
             res_k = residual_fn(xk)
         elif residual == "fused":
-            res_k = torch.linalg.vector_norm(fused.rhs - IMG @ y) / \
-                fused.rhs_norm
+            res_k = torch.linalg.vector_norm(
+                fused.rhs - upcast(IMG[:, :kdim]) @ yk) / fused.rhs_norm
         else:
-            res_k = torch.linalg.vector_norm(t - H @ y) / beta
+            res_k = torch.linalg.vector_norm(
+                t[:kdim + 1] - H[:kdim + 1, :kdim] @ yk) / beta
         err_k = error_fn(xk)
         # On (lucky) breakdown the Krylov space is invariant, so the
         # projected solve at this k is exact — adopt it, then stop (the JAX
@@ -205,22 +288,23 @@ def gmres_core(
 
 
 def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
-                         tol, x_shape, breakdown_tol, Q, H, t, beta):
+                         tol, x_shape, breakdown_tol, Q, H, t, beta, bdt):
     """Deferred-histories fused GMRES: Arnoldi-only loop, then batched
     projected solves and matmul-shaped histories (see ``gmres_core``).
     ``solution_fn`` and ``error_fn`` are called once, on the (maxit, maxit)
-    matrix whose column j is the padded ``y`` of step j+1."""
+    matrix whose column j is the padded ``y`` of step j+1.  ``bdt``: the
+    storage dtype of the stored images (``basis_dtype``)."""
     dtype, device = t.dtype, t.device
     m_img = fused.rhs.shape[0]
-    IMG = _column_major(m_img, maxit, dtype, device)
-    S = (_column_major(x_shape, maxit, dtype, device)
+    IMG = column_major(m_img, maxit, bdt, device)
+    S = (column_major(x_shape, maxit, bdt, device)
          if fused.solution_from_image else None)
     active = beta > 0
     nsteps = torch.zeros((), dtype=torch.int32, device=device)
     broke = torch.zeros((), dtype=torch.bool, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     for k in range(maxit):
-        u = fused.first_mv(Q[:, k])
+        u = fused.first_mv(Q[:, k].to(dtype))
         w = fused.second_mv(u)
         IMG[:, k] = torch.where(active, u if fused.img == "first" else w,
                                 zero)
@@ -234,16 +318,17 @@ def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
     ks = torch.arange(1, maxit + 1, dtype=torch.int32, device=device)
     # all maxit projected problems in one batched call: Y[j] = y_{j+1}
     Y = project_solve(H.expand(maxit, -1, -1), Q, t.expand(maxit, -1), ks)
-    # full float32 products (TF32 off): the post-loop matmuls must
+    # full float32 whatever the caller set: the post-loop products must
     # reproduce the in-loop per-iteration matvecs
-    res_full = torch.linalg.vector_norm(
-        fused.rhs[:, None] - IMG @ Y.T, dim=0) / fused.rhs_norm
-    if fused.solution_from_image:
-        X = S @ Y.T
-        if fused.x_offset is not None:
-            X = X + fused.x_offset[:, None]
-    else:
-        X = solution_fn(Q, Y.T)                     # (x_shape, maxit)
+    with full_float32_matmul():
+        res_full = torch.linalg.vector_norm(
+            fused.rhs[:, None] - IMG.to(dtype) @ Y.T, dim=0) / fused.rhs_norm
+        if fused.solution_from_image:
+            X = S.to(dtype) @ Y.T
+            if fused.x_offset is not None:
+                X = X + fused.x_offset[:, None]
+        else:
+            X = solution_fn(Q, Y.T)                 # (x_shape, maxit)
     err_full = error_fn(X)
 
     # Post-hoc stopping: the first k with res <= tol, bounded by the

@@ -8,8 +8,9 @@ Twin of ``hybrid_gmres_tpu/solvers/gmres.py``:
     ``y = (Hbar'Hbar + lam I)^{-1} Hbar' (beta e1)``.
 
 ``lam=None`` gives the non-hybrid variant, a scalar the hybrid one,
-``lam="gcv"`` the per-iteration GCV-optimal lambda over a grid.  The
-restarted wrappers are not ported yet (ROADMAP).
+``lam="gcv"`` the per-iteration GCV-optimal lambda over a grid.
+``ba_gmres_restarted`` / ``ab_gmres_restarted`` chain warm-started cycles
+of a fixed budget on the host.
 """
 
 from __future__ import annotations
@@ -32,7 +33,10 @@ from hybrid_gmres_tpu_torch.solvers.common import (
     rel_error_fn,
     rel_residual_fn,
 )
-from hybrid_gmres_tpu_torch.utils.checkpoint import resume_fingerprint
+from hybrid_gmres_tpu_torch.utils.checkpoint import (
+    check_fingerprint,
+    resume_fingerprint,
+)
 
 
 def _make_project_solve(lam, trace_dim, gcv_grid):
@@ -62,7 +66,16 @@ def _make_project_solve(lam, trace_dim, gcv_grid):
     return lambda H, Q, t, kdim: projected_tikhonov_solve(H, t, lam, kdim)
 
 
-def _setup(A, B, b, x_true, x0, maxit, lam, trace_axis, gcv_grid):
+def _basis(Q, maxit, y):
+    """The first ``maxit`` basis columns in ``y``'s dtype: a basis stored
+    in bf16 (``basis_dtype``) is read upcast, exactly."""
+    return Q[:, :maxit].to(y.dtype)
+
+
+def _setup(A, B, b, x_true, x0, maxit, lam, trace_axis, gcv_grid,
+           resume_from=None):
+    if resume_from is not None:
+        check_fingerprint(resume_from, x0, lam)
     b = as_vector(b)
     A = as_operator(A, device=b.device)
     B = as_operator(B, device=b.device)
@@ -105,10 +118,13 @@ def ab_gmres(
     y``).  ``residual="fused"`` stores ``B q_k`` and ``A (B q_k)`` so the
     per-iteration solution and TRUE residual are small matmuls — 2
     SpMVs/iteration instead of 4, identical numbers.
-    ``defer_histories`` (fused only): see ``solvers/common.py:gmres_core``.
+    ``defer_histories`` and ``basis_dtype`` (fused only), ``history`` and
+    ``resume_from``: see ``solvers/common.py:gmres_core``.  When resuming a
+    run that used ``x0``, pass the same ``x0`` (and ``lam``) again: the
+    checkpoint's fingerprint is checked against them.
     """
     A, B, b, x_true, x0, maxit, project_solve = _setup(
-        A, B, b, x_true, x0, maxit, lam, 0, gcv_grid)
+        A, B, b, x_true, x0, maxit, lam, 0, gcv_grid, resume_from)
 
     def krylov_mv(q):
         return A.matvec(B.matvec(q))
@@ -117,12 +133,12 @@ def ab_gmres(
         r0 = b
 
         def solution_fn(Q, y):
-            return B.matvec(Q[:, :maxit] @ y)
+            return B.matvec(_basis(Q, maxit, y) @ y)
     else:
         r0 = b - A.matvec(x0)
 
         def solution_fn(Q, y):
-            return x0 + B.matvec(Q[:, :maxit] @ y)
+            return x0 + B.matvec(_basis(Q, maxit, y) @ y)
     fused = (
         FusedResidual(first_mv=B.matvec, second_mv=A.matvec, rhs=r0,
                       rhs_norm=torch.linalg.vector_norm(b), img="second",
@@ -176,7 +192,7 @@ def ba_gmres(
     no extra SpMV: 2 SpMVs per iteration.
     """
     A, B, b, x_true, x0, maxit, project_solve = _setup(
-        A, B, b, x_true, x0, maxit, lam, 1, gcv_grid)
+        A, B, b, x_true, x0, maxit, lam, 1, gcv_grid, resume_from)
 
     def krylov_mv(q):
         return B.matvec(A.matvec(q))
@@ -185,12 +201,12 @@ def ba_gmres(
         rhs = b
 
         def solution_fn(Q, y):
-            return Q[:, :maxit] @ y
+            return _basis(Q, maxit, y) @ y
     else:
         rhs = b - A.matvec(x0)
 
         def solution_fn(Q, y):
-            return _offset(x0, y) + Q[:, :maxit] @ y
+            return _offset(x0, y) + _basis(Q, maxit, y) @ y
     r0 = B.matvec(rhs)
     fused = (
         FusedResidual(first_mv=A.matvec, second_mv=B.matvec, rhs=rhs,
@@ -217,3 +233,83 @@ def ba_gmres(
         basis_dtype=basis_dtype,
     )
     return res._replace(fp=resume_fingerprint(x0, lam, device=b.device))
+
+
+def _restarted(run_cycle, max_restarts, tol) -> GMRESResult:
+    """Outer restart loop: chain ``x0`` through cycles and join the
+    histories so that the result reads like one long run.  ``run_cycle(x0)``
+    runs one warm-started cycle.  Reads ``niters`` and the cycle's last
+    residual on the host once per cycle.
+
+    The result is NOT resumable (``niters`` counts all cycles but ``Q``/``H``
+    hold only the last cycle's factorization; ``check_resumable`` rejects
+    it): to continue, warm-start a fresh solve from ``.x``."""
+    x0 = None
+    res_hists, err_hists = [], []
+    total_iters = 0
+    last = None
+    for _ in range(int(max_restarts)):
+        r = run_cycle(x0)
+        k = int(r.niters)
+        res_hists.append(r.res_hist[:k])
+        err_hists.append(r.err_hist[:k])
+        total_iters += k
+        x0 = r.x
+        last = r
+        if k == 0:
+            break  # breakdown or zero RHS: no progress possible
+        last_res = float(r.res_hist[k - 1])
+        if np.isnan(last_res) or last_res <= tol:
+            break
+    return GMRESResult(
+        x=last.x,
+        err_hist=torch.cat(err_hists),
+        res_hist=torch.cat(res_hists),
+        niters=torch.tensor(total_iters, dtype=torch.int32,
+                            device=last.x.device),
+        Q=last.Q,
+        H=last.H,
+        beta=last.beta,
+        # the last cycle's stop state (a >1-cycle aggregate is rejected by
+        # check_resumable regardless)
+        active=last.active,
+    )
+
+
+def ba_gmres_restarted(
+    A,
+    B,
+    b,
+    x_true=None,
+    tol: float = 1e-6,
+    restart: int = 20,
+    max_restarts: int = 10,
+    lam=None,
+    residual: str = "true",
+) -> GMRESResult:
+    """Restarted BA-GMRES(restart): cycles of ``restart`` steps, each
+    warm-started from the last (``r0 = B (b - A x0)``, ``x = x0 + Q_k y``),
+    until ``max_restarts`` cycles ran or the residual reached ``tol``."""
+    return _restarted(
+        lambda x0: ba_gmres(A, B, b, x_true, tol=tol, maxit=int(restart),
+                            lam=lam, x0=x0, residual=residual),
+        max_restarts, tol)
+
+
+def ab_gmres_restarted(
+    A,
+    B,
+    b,
+    x_true=None,
+    tol: float = 1e-6,
+    restart: int = 20,
+    max_restarts: int = 10,
+    lam=None,
+    residual: str = "true",
+) -> GMRESResult:
+    """Restarted AB-GMRES(restart): Krylov in m-space, warm-started via
+    ``r0 = b - A x0``, ``x = x0 + B Q_k y`` per cycle."""
+    return _restarted(
+        lambda x0: ab_gmres(A, B, b, x_true, tol=tol, maxit=int(restart),
+                            lam=lam, x0=x0, residual=residual),
+        max_restarts, tol)

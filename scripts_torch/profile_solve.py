@@ -4,11 +4,13 @@
     python3 scripts_torch/profile_solve.py
 
 Builds the bench scenario of ``chip_smoke.py`` at n=64 and n=128 (int8 Morton
-block-ELL operators, forward panels only, maxit=100) in five modes — hybrid
+block-ELL operators, forward panels only, maxit=100) in seven modes — hybrid
 BA-GMRES (lam=1e-2, fused residual) as the single-RHS solve and as the
 serving batch of R=8 sinograms (noise seeds 0..7) with in-loop and with
-deferred histories, and the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
-(the redesigned K1 + K3, and K2 + K4, on the row-packed forms) —
+deferred histories, the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
+(the redesigned K1 + K3, and K2 + K4, on the row-packed forms), and the
+regularize-then-project solvers ``ba_rtp`` and ``ab_rtp`` (lam=1e-2, the
+redesigned K1, and for AB-RTP one K2 of maxit columns a step) —
 and times 5 solves of each after one warm-up, all before the first profiler
 session (the profiler slows the host loop after it, too).  Then it runs one
 solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
@@ -53,6 +55,7 @@ KINDS = (
     ("K2 bucket_matmat", ("bucket_matmat",)),
     ("K3/K4 finishing pass", ("bucket_rmat_finish",)),
     ("Cholesky", ("potrf", "getrf", "cholesky")),
+    ("QR", ("geqrf", "orgqr", "ormqr", "householder")),
     ("triangular solves", ("trsm", "trsv", "triangular")),
     ("cuBLAS gemv/gemm/dot", ("gemv", "gemm", "dot_kernel", "dot")),
     ("norms", ("norm",)),
@@ -182,6 +185,12 @@ def gkb_run(name, P, b):
                    **kw)
 
 
+def rtp_run(name, P):
+    return partial(chip_smoke.rtp_solver(name), P.A_op, P.B_op, P.b,
+                   P.x_true, tol=0.0, maxit=chip_smoke.MAXIT,
+                   lam=chip_smoke.LAM)
+
+
 def main():
     import torch
 
@@ -201,7 +210,9 @@ def main():
                 ("batched R=8 deferred",
                  partial(chip_smoke.solve_batched, P, b8, True)),
                 ("lsqr", gkb_run("lsqr", P, P.b)),
-                ("lsqr_batched R=8", gkb_run("lsqr_batched", P, b8))):
+                ("lsqr_batched R=8", gkb_run("lsqr_batched", P, b8)),
+                ("ba_rtp", rtp_run("ba_gmres_rtp", P)),
+                ("ab_rtp", rtp_run("ab_gmres_rtp", P))):
             runs.append((n, mode, run, chip_smoke.per_call_ms(run, reps=5),
                          P.info))
     for run in runs:

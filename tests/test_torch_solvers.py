@@ -6,6 +6,8 @@ same algorithm with different BLAS summation orders, and later iterations
 drift physically on ill-conditioned problems.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,11 +18,13 @@ from hybrid_gmres_tpu.krylov.arnoldi import arnoldi_orthogonalize as jorth
 from hybrid_gmres_tpu.krylov import projected as jproj
 from hybrid_gmres_tpu.solvers import gmres as jgmres
 from hybrid_gmres_tpu.utils.checkpoint import resume_fingerprint as jfp
-from hybrid_gmres_tpu_torch.krylov import arnoldi as tarn
 from hybrid_gmres_tpu_torch.krylov import projected as tproj
 from hybrid_gmres_tpu_torch.solvers import gmres as tgmres
 from hybrid_gmres_tpu_torch.utils.checkpoint import resume_fingerprint as tfp
 from hybrid_gmres_tpu_torch.utils.convert import dense_from_numpy
+
+# the module: the package exports the function ``arnoldi`` under its name
+tarn = importlib.import_module("hybrid_gmres_tpu_torch.krylov.arnoldi")
 
 RTOL = 1e-10
 K = 8  # iterations compared
@@ -157,22 +161,6 @@ def test_arnoldi_and_projected_solves_match_jax():
 def test_fingerprint_matches_jax(lam):
     np.testing.assert_array_equal(tfp(None, lam, tag="x0_reg").numpy(),
                                   np.asarray(jfp(None, lam, tag="x0_reg")))
-
-
-@pytest.mark.parametrize("option", [
-    dict(basis_dtype=torch.bfloat16, defer_histories=True),
-    dict(basis_dtype=torch.float32), dict(history=False),
-    dict(resume_from=object()), dict(history=False, lam="gcv")])
-def test_unported_options_raise(option):
-    """``basis_dtype``, ``history=False`` and single-RHS ``resume_from``
-    still wait (ROADMAP 5b, 5c), also combined with the options that are
-    ported by now (``defer_histories``, ``lam="gcv"``)."""
-    A, B, b, _ = _pair()
-    kw = dict(tol=0.0, maxit=3, lam=1e-3, residual="fused")
-    kw.update(option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgmres.ba_gmres(torch.from_numpy(A), torch.from_numpy(B),
-                        torch.from_numpy(b), **kw)
 
 
 @pytest.mark.parametrize("method", ["ba", "ab"])
