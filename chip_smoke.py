@@ -30,11 +30,16 @@ Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
     resumed, bf16-basis and ``history=False`` single solves, the GCV /
     discrepancy / L-curve selectors (K2 at R = k_gcv and at R = the grid
     size) and the experiment drivers ``ptr_rtp``, ``regularization`` and
-    ``gcv_surface_exp``.
+    ``gcv_surface_exp``;
+  * the rest of the drivers — ``phantom2d_gpu`` (the JAX package's
+    ``phantom2d_tpu`` on the card: the single solve through the redesigned
+    K1, an R=4 deferred serving batch cold and warm through the redesigned
+    K2), the seven dense drivers and the experiments CLI.
 
 The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
-phase 3 beside the kernels that replaced them.
+phase 3 beside the kernels that replaced them (an operator keeps its panels
+on the host; phase 3 puts them on the card and releases them).
 
 Phases:
 
@@ -96,10 +101,25 @@ Phases:
      float64 on the host (a grid step, 1e-3 for Brent, or as good by the
      float64 objective); the three drivers against the CPU port, with the
      values of ``figures/results.json`` beside them;
-  9. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
+  9. the rest of the drivers at n=64 (``drivers_rest``): ``phantom2d_gpu``
+     at its default Config (its two quality gates; the launch counts worked
+     out from the code, no block-ELL kernel; the single solve's history
+     against the float64 host reference of its sinogram; warm <= cold
+     iterations to the gate; it/s beside the JAX package's TPU record);
+     ``equivalence``, ``error_surface``, ``filter_factors_exp``,
+     ``perturbation_bounds``, ``noise_sweep``, ``mismatch_sweep`` and
+     ``phantom2d`` on the card against the CPU port in float32, with the
+     values of ``figures/results.json`` beside them; the CLI's
+     ``results.json`` keys against the JAX file's;
+ 10. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
      ``lsqr_batched``; the float64 reference for column 0; the RTP solvers,
      ``gcv_lambda("ba", residual_space="original")`` and
      ``discrepancy_lambda("ba")``).
+
+The peak device memory of each solve path (``max_memory_allocated``, reset
+before the path) is printed after it (``memory``) and all together
+(``memory_peaks``), once the kernel phases' plain-version caches are
+dropped.
 
 Phase 3 also holds the redesigned K2 at the lambda path's R and layouts
 (R = 100 and 20 on the transposed view of a column-major basis, R = 80 on a
@@ -208,30 +228,11 @@ def say(phase, **fields):
 
 def time_ms(fn, reps=50):
     """Mean device milliseconds of ``fn()`` over ``reps`` back-to-back
-    calls, from CUDA events, after a warm-up.  A kernel of a few
-    microseconds launches from Python more slowly than it runs, so a spin of
-    the card is queued first, long enough for the host to queue every call
-    behind it: the calls then run back to back and the events time the
-    device, not the host's launches."""
-    import torch
+    calls, from CUDA events behind a spin of the card, after a warm-up
+    (``utils/profiling.device_seconds``)."""
+    from hybrid_gmres_tpu_torch.utils.profiling import device_seconds
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # twice the host's time for the calls, in cycles at up to 2 GHz
-    torch.cuda._sleep(int(min(2 * reps * host_s, 2.0) * 2e9))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_seconds(fn, repeats=reps, device="cuda") * 1e3
 
 
 def per_call_ms(fn, reps):
@@ -276,6 +277,36 @@ class HostSyncs:
         self.messages = [str(w.message) for w in self._caught
                          if "synchroniz" in str(w.message).lower()]
         self.count = len(self.messages)
+
+
+# path -> device memory of its run (PeakMemory)
+MEMORY = {}
+
+
+class PeakMemory:
+    """Device memory of the block it wraps: ``max_memory_allocated`` after
+    a reset of the peak on entry, beside what was allocated on entry (the
+    operators and anything else resident)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.resident = torch.cuda.memory_allocated()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        MEMORY[self.path] = dict(
+            peak_mb=torch.cuda.max_memory_allocated() / 1e6,
+            resident_at_start_mb=self.resident / 1e6)
+        say("memory", path=self.path, **MEMORY[self.path])
 
 
 def phase_device():
@@ -416,6 +447,18 @@ def library_csr(csr, transpose=False):
         size=q.shape)
 
 
+def device_panels(*ops):
+    """The block-ELL panels of ``ops`` (None skipped) on the card inside
+    the block (``BlockELLOperator.panels_on_device``), released on exit."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    for op in ops:
+        if op is not None:
+            stack.enter_context(op.panels_on_device())
+    return stack
+
+
 def phase_ct_kernels(P):
     """K1-K4 against their plain versions on the CT int8 panels of A and B,
     K2's columns against K1 and K4's against K3, all timed beside the
@@ -435,91 +478,95 @@ def phase_ct_kernels(P):
         [] for _ in range(8))
     for tag, op, adj_op, csr in (("A", P.A_op, P.A_adj, P.A_csr),
                                  ("B", P.B_op, P.B_adj, P.B_csr)):
-        bell, scale = op.fwd, op.fwd_scale
-        panel = f"n={P.n} {tag} int8 {tuple(bell.block_shape)}"
-        common = dict(panel=panel, shape=list(op.shape),
-                      panel_mb=bell.nbytes / 1e6, nnz=int(csr.nnz))
-        lib = library_csr(csr)
-        X = torch.as_tensor(rng.standard_normal((op.shape[1], 8)),
-                            dtype=torch.float32, device="cuda")
-        Xt = X.T.contiguous().T       # the batched solver's layout
-        x = X[:, 0].contiguous()
+        with device_panels(op, adj_op):
+            bell, scale = op.fwd, op.fwd_scale
+            panel = f"n={P.n} {tag} int8 {tuple(bell.block_shape)}"
+            common = dict(panel=panel, shape=list(op.shape),
+                          panel_mb=bell.nbytes / 1e6, nnz=int(csr.nnz))
+            lib = library_csr(csr)
+            X = torch.as_tensor(rng.standard_normal((op.shape[1], 8)),
+                                dtype=torch.float32, device="cuda")
+            Xt = X.T.contiguous().T       # the batched solver's layout
+            x = X[:, 0].contiguous()
 
-        # K1
-        y_k, y_p = bucket_matvec(bell, x, scale), \
-            bucket_matvec_plain(bell, x, scale)
-        torch.cuda.synchronize()
-        check(y_k.shape == y_p.shape and bool(torch.isfinite(y_k).all()),
-              f"{panel}: K1 output not finite or misshaped")
-        e1 = rel_err(y_k, y_p)
-        check(e1 <= KERNEL_RTOL, f"{panel}: K1 vs plain {e1:.3e}")
-        l1 = rel_err(lib @ x, y_k)
-        check(l1 <= LIBRARY_RTOL, f"{panel}: K1 vs library {l1:.3e}")
-        run_k = partial(bucket_matvec, bell, x, scale)
-        run_p = partial(bucket_matvec_plain, bell, x, scale)
-        # plain, kernel, kernel, plain: both see the same card state
-        p1, k1, k2, p2 = time_ms(run_p), time_ms(run_k), time_ms(run_k), \
-            time_ms(run_p)
-        w1 = panel_work(bell, 1)
-        b_ms, b_by = bound([w1])
-        recs1.append(dict(
-            common, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-            library_ms=time_ms(lambda: lib @ x), bound_ms=b_ms,
-            bound_by=b_by, work=w1, max_abs_err=float((y_k - y_p).abs().max()),
-            max_rel_err=e1, library_max_rel_diff=l1))
-        say("kernel_vs_plain", kernel="K1", **recs1[-1])
+            # K1
+            y_k, y_p = bucket_matvec(bell, x, scale), \
+                bucket_matvec_plain(bell, x, scale)
+            torch.cuda.synchronize()
+            check(y_k.shape == y_p.shape and bool(torch.isfinite(y_k).all()),
+                  f"{panel}: K1 output not finite or misshaped")
+            e1 = rel_err(y_k, y_p)
+            check(e1 <= KERNEL_RTOL, f"{panel}: K1 vs plain {e1:.3e}")
+            l1 = rel_err(lib @ x, y_k)
+            check(l1 <= LIBRARY_RTOL, f"{panel}: K1 vs library {l1:.3e}")
+            run_k = partial(bucket_matvec, bell, x, scale)
+            run_p = partial(bucket_matvec_plain, bell, x, scale)
+            # plain, kernel, kernel, plain: both see the same card state
+            p1, k1, k2, p2 = time_ms(run_p), time_ms(run_k), time_ms(run_k), \
+                time_ms(run_p)
+            w1 = panel_work(bell, 1)
+            b_ms, b_by = bound([w1])
+            recs1.append(dict(
+                common, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                library_ms=time_ms(lambda: lib @ x), bound_ms=b_ms,
+                bound_by=b_by, work=w1,
+                max_abs_err=float((y_k - y_p).abs().max()),
+                max_rel_err=e1, library_max_rel_diff=l1))
+            say("kernel_vs_plain", kernel="K1", **recs1[-1])
 
-        # K2: R=8 in both layouts, a ragged tile R=3, columns against K1
-        Y_p = bucket_matmat_plain(bell, X, scale)
-        Y_k, Y_t = bucket_matmat(bell, X, scale), bucket_matmat(bell, Xt,
-                                                                scale)
-        torch.cuda.synchronize()
-        check(Y_k.shape == Y_p.shape == Y_t.shape and
-              bool(torch.isfinite(Y_k).all()),
-              f"{panel}: K2 output not finite or misshaped")
-        check(Y_t.T.is_contiguous(), f"{panel}: K2 did not keep the layout")
-        e2 = max(rel_err(Y_k, Y_p), rel_err(Y_t, Y_p))
-        e3 = rel_err(bucket_matmat(bell, X[:, :3].contiguous(), scale),
-                     Y_p[:, :3])
-        check(max(e2, e3) <= KERNEL_RTOL,
-              f"{panel}: K2 vs plain {e2:.3e} (R=8), {e3:.3e} (R=3)")
-        col_diff = max(float((Y_t[:, j] - bucket_matvec(
-            bell, X[:, j].contiguous(), scale)).abs().max())
-            for j in range(8))
-        check(col_diff <= KERNEL_RTOL * float(Y_p.abs().max()),
-              f"{panel}: K2 column vs K1 {col_diff:.3e}")
-        l2 = rel_err(lib @ X, Y_k)
-        check(l2 <= LIBRARY_RTOL, f"{panel}: K2 vs library {l2:.3e}")
-        run_k = partial(bucket_matmat, bell, Xt, scale)
-        run_p = partial(bucket_matmat_plain, bell, X, scale)
+            # K2: R=8 in both layouts, a ragged tile R=3, columns against K1
+            Y_p = bucket_matmat_plain(bell, X, scale)
+            Y_k, Y_t = bucket_matmat(bell, X, scale), bucket_matmat(bell, Xt,
+                                                                    scale)
+            torch.cuda.synchronize()
+            check(Y_k.shape == Y_p.shape == Y_t.shape and
+                  bool(torch.isfinite(Y_k).all()),
+                  f"{panel}: K2 output not finite or misshaped")
+            check(Y_t.T.is_contiguous(),
+                  f"{panel}: K2 did not keep the layout")
+            e2 = max(rel_err(Y_k, Y_p), rel_err(Y_t, Y_p))
+            e3 = rel_err(bucket_matmat(bell, X[:, :3].contiguous(), scale),
+                         Y_p[:, :3])
+            check(max(e2, e3) <= KERNEL_RTOL,
+                  f"{panel}: K2 vs plain {e2:.3e} (R=8), {e3:.3e} (R=3)")
+            col_diff = max(float((Y_t[:, j] - bucket_matvec(
+                bell, X[:, j].contiguous(), scale)).abs().max())
+                for j in range(8))
+            check(col_diff <= KERNEL_RTOL * float(Y_p.abs().max()),
+                  f"{panel}: K2 column vs K1 {col_diff:.3e}")
+            l2 = rel_err(lib @ X, Y_k)
+            check(l2 <= LIBRARY_RTOL, f"{panel}: K2 vs library {l2:.3e}")
+            run_k = partial(bucket_matmat, bell, Xt, scale)
+            run_p = partial(bucket_matmat_plain, bell, X, scale)
 
-        def run_8k1():
-            for j in range(8):
-                bucket_matvec(bell, Xt[:, j], scale)
+            def run_8k1():
+                for j in range(8):
+                    bucket_matvec(bell, Xt[:, j], scale)
 
-        p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), \
-            time_ms(run_p, 10)
-        w2 = panel_work(bell, 8)
-        b_ms, b_by = bound([w2])
-        recs2.append(dict(
-            common, R=8, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-            ms_row_major=time_ms(partial(bucket_matmat, bell, X, scale)),
-            k1_x8_ms=time_ms(run_8k1, 10),
-            library_ms=time_ms(lambda: lib @ X), bound_ms=b_ms,
-            bound_by=b_by, work=w2, max_abs_err=float(max(
-                (Y_k - Y_p).abs().max(), (Y_t - Y_p).abs().max())),
-            max_rel_err=e2, max_rel_err_R3=e3, column_vs_k1_max_diff=col_diff,
-            column_equals_k1=col_diff == 0.0, library_max_rel_diff=l2))
-        say("kernel_vs_plain", kernel="K2", **recs2[-1])
-        r3, r4 = transposed_kernels(op, adj_op, csr, common, rng)
-        recs3.append(r3)
-        recs4.append(r4)
-        r1r, r3r = row_kernels(op, csr, common, rng)
-        recs1r.append(r1r)
-        recs3r.append(r3r)
-        r2r, r4r = row_mm_kernels(op, csr, common, rng)
-        recs2r.append(r2r)
-        recs4r.append(r4r)
+            p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), \
+                time_ms(run_k), time_ms(run_p, 10)
+            w2 = panel_work(bell, 8)
+            b_ms, b_by = bound([w2])
+            recs2.append(dict(
+                common, R=8, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                ms_row_major=time_ms(partial(bucket_matmat, bell, X, scale)),
+                k1_x8_ms=time_ms(run_8k1, 10),
+                library_ms=time_ms(lambda: lib @ X), bound_ms=b_ms,
+                bound_by=b_by, work=w2, max_abs_err=float(max(
+                    (Y_k - Y_p).abs().max(), (Y_t - Y_p).abs().max())),
+                max_rel_err=e2, max_rel_err_R3=e3,
+                column_vs_k1_max_diff=col_diff,
+                column_equals_k1=col_diff == 0.0, library_max_rel_diff=l2))
+            say("kernel_vs_plain", kernel="K2", **recs2[-1])
+            r3, r4 = transposed_kernels(op, adj_op, csr, common, rng)
+            recs3.append(r3)
+            recs4.append(r4)
+            r1r, r3r = row_kernels(op, csr, common, rng)
+            recs1r.append(r1r)
+            recs3r.append(r3r)
+            r2r, r4r = row_mm_kernels(op, csr, common, rng)
+            recs2r.append(r2r)
+            recs4r.append(r4r)
     return recs1, recs2, recs3, recs4, recs1r, recs3r, recs2r, recs4r
 
 
@@ -926,65 +973,74 @@ def phase_small_kernels(device="cuda"):
             op = BlockELLOperator.from_csr(csr, block=block, dtype=dt,
                                            device=device)
             label = f"random {dt} {block}"
-            # the adjoint panel holds Q^T: rmatvec pre-scales u by s
-            U_s = U if op.fwd_scale is None else op.fwd_scale[:, None] * U
-            worst1 = worst2 = col = 0.0
-            for bell, scale, V in ((op.fwd, op.fwd_scale, X),
-                                   (op.adj, None, U_s)):
-                v = V[:, 0].contiguous()
-                worst1 = max(worst1, rel_err(
-                    bucket_matvec(bell, v, scale),
-                    bucket_matvec_plain(bell, v, scale)))
-                for R in (1, 5, 8, 12):
-                    VR = V[:, :R].contiguous()
-                    want = bucket_matmat_plain(bell, VR, scale)
-                    for layout in (VR, VR.T.contiguous().T):
-                        got = bucket_matmat(bell, layout, scale)
+            with op.panels_on_device():
+                # the adjoint panel holds Q^T: rmatvec pre-scales u by s
+                U_s = U if op.fwd_scale is None else op.fwd_scale[:, None] * U
+                worst1 = worst2 = col = 0.0
+                for bell, scale, V in ((op.fwd, op.fwd_scale, X),
+                                       (op.adj, None, U_s)):
+                    v = V[:, 0].contiguous()
+                    worst1 = max(worst1, rel_err(
+                        bucket_matvec(bell, v, scale),
+                        bucket_matvec_plain(bell, v, scale)))
+                    for R in (1, 5, 8, 12):
+                        VR = V[:, :R].contiguous()
+                        want = bucket_matmat_plain(bell, VR, scale)
+                        for layout in (VR, VR.T.contiguous().T):
+                            got = bucket_matmat(bell, layout, scale)
+                            check(got.shape == want.shape,
+                                  f"{label}: K2 output misshaped at R={R}")
+                            worst2 = max(worst2, rel_err(got, want))
+                        col = max(col, max(float((got[:, j] - bucket_matvec(
+                            bell, VR[:, j].contiguous(), scale)).abs().max())
+                            for j in range(R)))
+                bell, scale = op.fwd, op.fwd_scale
+                u = U[:, 0].contiguous()
+                z = bucket_rmatvec(bell, u, scale)
+                worst3 = rel_err(z, bucket_rmatvec_plain(bell, u, scale))
+                rep = float((z - bucket_rmatvec(bell, u, scale)).abs().max())
+                worst4 = col4 = 0.0
+                for R in (1, 3, 5, 8, 12):
+                    UR = U[:, :R].contiguous()
+                    want = bucket_rmatmat_plain(bell, UR, scale)
+                    for layout in (UR, UR.T.contiguous().T):
+                        got = bucket_rmatmat(bell, layout, scale)
                         check(got.shape == want.shape,
-                              f"{label}: K2 output misshaped at R={R}")
-                        worst2 = max(worst2, rel_err(got, want))
-                    col = max(col, max(float((got[:, j] - bucket_matvec(
-                        bell, VR[:, j].contiguous(), scale)).abs().max())
-                        for j in range(R)))
-            bell, scale = op.fwd, op.fwd_scale
-            u = U[:, 0].contiguous()
-            z = bucket_rmatvec(bell, u, scale)
-            worst3 = rel_err(z, bucket_rmatvec_plain(bell, u, scale))
-            rep = float((z - bucket_rmatvec(bell, u, scale)).abs().max())
-            worst4 = col4 = 0.0
-            for R in (1, 3, 5, 8, 12):
-                UR = U[:, :R].contiguous()
-                want = bucket_rmatmat_plain(bell, UR, scale)
-                for layout in (UR, UR.T.contiguous().T):
-                    got = bucket_rmatmat(bell, layout, scale)
-                    check(got.shape == want.shape,
-                          f"{label}: K4 output misshaped at R={R}")
-                    worst4 = max(worst4, rel_err(got, want))
-                    col4 = max(col4, max(float((got[:, j] - bucket_rmatvec(
-                        bell, UR[:, j].contiguous(), scale)).abs().max())
-                        for j in range(R)))
-            torch.cuda.synchronize()
-            check(worst1 <= KERNEL_RTOL, f"{label}: K1 vs plain {worst1:.3e}")
-            check(worst2 <= KERNEL_RTOL, f"{label}: K2 vs plain {worst2:.3e}")
-            check(worst3 <= KERNEL_RTOL, f"{label}: K3 vs plain {worst3:.3e}")
-            check(worst4 <= KERNEL_RTOL, f"{label}: K4 vs plain {worst4:.3e}")
-            check(rep == 0.0 and col4 == 0.0, f"{label}: K3 twice differs by "
-                  f"{rep:.3e}, K4's columns from K3 by {col4:.3e}")
-            if dt == torch.bfloat16:
-                # bf16 keeps 8 significant bits: each stored entry is off
-                # by <= 2^-9 of itself, so |y_bf16 - y_f32| <= 2^-9 sum|a x|
-                # per row (plus f32 accumulation, far smaller): bound 2^-8.
-                x = X[:, 0].contiguous()
-                absax = bucket_matvec_plain(
-                    BlockELLOperator.from_csr(abs(csr), block=block,
-                                              device=device).fwd, x.abs())
-                check(bool(((op.matvec(x) - ref32.matvec(x)).abs()
-                            <= 2.0 ** -8 * absax + 1e-30).all()),
-                      f"{label}: bf16 panel outside its rounding bound")
-            say("kernel_vs_plain_small", panel=label, k1_max_rel_err=worst1,
-                k2_max_rel_err=worst2, k2_column_vs_k1_max_diff=col,
-                k3_max_rel_err=worst3, k4_max_rel_err=worst4,
-                k4_column_vs_k3_max_diff=col4, k3_repeat_max_diff=rep)
+                              f"{label}: K4 output misshaped at R={R}")
+                        worst4 = max(worst4, rel_err(got, want))
+                        col4 = max(col4, max(float((got[:, j] - bucket_rmatvec(
+                            bell, UR[:, j].contiguous(), scale)).abs().max())
+                            for j in range(R)))
+                torch.cuda.synchronize()
+                check(worst1 <= KERNEL_RTOL,
+                      f"{label}: K1 vs plain {worst1:.3e}")
+                check(worst2 <= KERNEL_RTOL,
+                      f"{label}: K2 vs plain {worst2:.3e}")
+                check(worst3 <= KERNEL_RTOL,
+                      f"{label}: K3 vs plain {worst3:.3e}")
+                check(worst4 <= KERNEL_RTOL,
+                      f"{label}: K4 vs plain {worst4:.3e}")
+                check(rep == 0.0 and col4 == 0.0, f"{label}: K3 twice "
+                      f"differs by {rep:.3e}, K4's columns from K3 by "
+                      f"{col4:.3e}")
+                if dt == torch.bfloat16:
+                    # bf16 keeps 8 significant bits: each stored entry is
+                    # off by <= 2^-9 of itself, so |y_bf16 - y_f32| <= 2^-9
+                    # sum|a x| per row (plus f32 accumulation, far smaller):
+                    # bound 2^-8.
+                    x = X[:, 0].contiguous()
+                    abs_op = BlockELLOperator.from_csr(
+                        abs(csr), block=block, device=device)
+                    with abs_op.panels_on_device():
+                        absax = bucket_matvec_plain(abs_op.fwd, x.abs())
+                    check(bool(((op.matvec(x) - ref32.matvec(x)).abs()
+                                <= 2.0 ** -8 * absax + 1e-30).all()),
+                          f"{label}: bf16 panel outside its rounding bound")
+                say("kernel_vs_plain_small", panel=label,
+                    k1_max_rel_err=worst1, k2_max_rel_err=worst2,
+                    k2_column_vs_k1_max_diff=col,
+                    k3_max_rel_err=worst3, k4_max_rel_err=worst4,
+                    k4_column_vs_k3_max_diff=col4, k3_repeat_max_diff=rep)
             fwd_only = BlockELLOperator.from_csr(
                 csr, block=block, dtype=dt, with_adjoint=False, device=device)
             for tag, o in (("with_adjoint", op), ("forward only", fwd_only)):
@@ -1260,6 +1316,20 @@ def held_to(err, err_ref, label, what, bands=None):
     check(at_min <= min_rtol, f"{label}: min-over-k error vs {what} "
           f"{at_min:.2e} > {min_rtol:.0e}")
     return hist, at_min
+
+
+def release_plain_caches(P):
+    """Drop the sum orders that the kernel phases made the plain versions
+    cache on the card (``RowPacked.sum_order``: int64 indices of every
+    stored entry, gigabytes at n=128).  No solve reads them, so the memory
+    peaks of the paths then count what the paths need."""
+    import torch
+
+    for op in (P.A_op, P.B_op, P.A_adj, P.B_adj):
+        if op is not None:
+            for rp in (op.fwd_rows, op.adj_rows):
+                rp.__dict__.pop("sum_order", None)
+    torch.cuda.empty_cache()
 
 
 def phase_main_path(P):
@@ -2362,6 +2432,17 @@ def phase_lambda_choice(P, full):
     say("lambda_choice", **out)
 
 
+def results_json():
+    """``figures/results.json``: the JAX package's record of its drivers
+    (float64 CPU runs; ``phantom2d_tpu`` from a TPU)."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "figures", "results.json")
+    with open(path) as f:
+        return json.load(f)
+
+
 # figures/results.json: the JAX package's float64 runs of the drivers
 RESULTS_JSON = {"ptr_rtp": ("ba_ptr", "ba_rtp", "ab_ptr", "ab_rtp"),
                 "regularization": ("gcv_lambda_ab", "gcv_lambda_ba"),
@@ -2391,16 +2472,11 @@ def phase_drivers(device="cuda"):
     the first REF_K k: past them the float32 factorizations of shaw drift
     apart, as the histories do); the values of ``figures/results.json``
     (the JAX package's float64 runs) printed beside them."""
-    import os
-
     from hybrid_gmres_tpu_torch.experiments import (gcv_surface_exp,
                                                     ptr_rtp, regularization)
     from hybrid_gmres_tpu_torch.experiments.common import host as to_host
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "figures", "results.json")
-    with open(path) as f:
-        results = json.load(f)
+    results = results_json()
     out = {}
     for name, module in (("ptr_rtp", ptr_rtp),
                          ("regularization", regularization),
@@ -2463,6 +2539,273 @@ def phase_drivers(device="cuda"):
     say("drivers", **out)
 
 
+# figures/results.json's phantom2d_tpu entry: the JAX package's run of the
+# scenario on a TPU, printed beside the card's numbers for context only
+TPU_RECORD = ("min_err", "batched_min_err_worst", "it_per_s")
+# The seven dense drivers, each on the card and on the CPU port in float32.
+# What float32 holds in them, as measured by running each driver on the CPU
+# in float32 and in float64 (float32 rounding moves a quantity about as
+# much as the card's other summation order does):
+#   * the regularized histories (hybrid GMRES and LSMR, the hybrid
+#     filter-factor runs, phantom2d's non-hybrid GMRES on the CT pair) over
+#     the first REF_K steps to DRIVER_RTOL (float32 vs float64 <= 2.1e-5);
+#   * the histories of unregularized GMRES on the 1-D problems and of the
+#     GKB recurrences (LSQR, LSMR; hybrid LSQR on the composed CT operator)
+#     over their first UNSTABLE_K steps only: float32 rounding moves them by
+#     more than 1e-4 from step 3 on (LSMR on deriv2: 0.55 within 12 steps);
+#   * a GCV lambda (bounded Brent on [1e-9, 1e-1]) within one step of
+#     GCV_GRID (float32 vs float64 <= 1%);
+#   * the error surface's optimum (k, lambda) exactly, its error to
+#     DRIVER_RTOL;
+#   * the sweeps' low/high final errors at those lambdas to SWEEP_RTOL
+#     (float32 vs float64 <= 2.8e-2), but not hybrid BA's in the noise sweep
+#     (GCV parks BA's projected objective at 1e-9: unregularized) nor the
+#     non-hybrid ones (GMRES at step 32 on shaw, of order 1e12): float32
+#     moves those by factors of 5 to 1500, and they are held finite;
+#   * equivalence's (!=) soldiff to DRIVER_RTOL, its hybrid (==) pair within
+#     EQUAL_F32 on both (float32: 1.3e-7); the non-hybrid pairs compare LSQR
+#     and LSMR after 32 float32 steps (0.23 / 0.12, float64 1e-3): finite.
+UNSTABLE_K = 2
+GCV_GRID = np.logspace(-9, -1, 100)
+SWEEP_RTOL = 5e-2
+EQUAL_F32 = 1e-5
+DENSE_DRIVERS = ("equivalence", "error_surface", "filter_factors_exp",
+                 "perturbation_bounds", "noise_sweep", "mismatch_sweep",
+                 "phantom2d")
+
+
+def phantom_gpu_launches(res):
+    """(K1, K2, K3, K4, K1r, K3r, K2r, K4r) launches of one run of
+    ``phantom2d_gpu``, worked out from the code: four single solves (the
+    first, then the best of 3) of 2 maxit + 1 K1r each (B b, then A and B
+    per step), the gate-stopped solve of 2 k_stop + 1, and two batched
+    scans (cold from zeros and warm) of 2 maxit + 2 K2r each (A x0 and
+    B (b - A x0), then A and B per step)."""
+    from hybrid_gmres_tpu_torch.experiments import phantom2d_gpu as pg
+
+    maxit = res.cfg.maxit
+    k_stop = max(pg.iters_to_gate(res.err_hist, res.gate), 1)
+    return (0, 0, 0, 0, 4 * (2 * maxit + 1) + 2 * k_stop + 1, 0,
+            2 * (2 * maxit + 2), 0)
+
+
+def phase_phantom2d_gpu(prob, ray_perm, pix_perm, results):
+    """``phantom2d_gpu`` at its default Config on the card: its gates (the
+    driver raises), the launch counts, the single solve's history against
+    the float64 host reference of the same sinogram (the main path's
+    bands), warm <= cold iterations to the gate."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.experiments import phantom2d_gpu as pg
+
+    cfg = pg.Config()
+    check(cfg.maxit == MAXIT and cfg.lam == LAM and cfg.n == 64,
+          "phantom2d_gpu's default Config is not the main path's scenario")
+    t0 = time.perf_counter()
+    reset_counts()
+    with PeakMemory("n=64 phantom2d_gpu"):
+        res = pg.run(cfg)
+    torch.cuda.synchronize()
+    launched = counts()
+    run_s = time.perf_counter() - t0
+    want = phantom_gpu_launches(res)
+    check(launched == want, f"phantom2d_gpu: {LAUNCHES} launches "
+          f"{launched}, expected {want}")
+    check(res.min_err <= res.gate and res.batched_min_err_worst <= res.gate,
+          f"phantom2d_gpu: min {res.min_err:.4f}, worst frame "
+          f"{res.batched_min_err_worst:.4f}, gate {res.gate:.4f}")
+    check(1 <= res.warm_iters_to_gate <= res.cold_iters_to_gate,
+          f"phantom2d_gpu: warm {res.warm_iters_to_gate} cold "
+          f"{res.cold_iters_to_gate} iterations to the gate")
+    b = pg._noise(prob.b_exact, cfg.noise_level, cfg.seed)[ray_perm]
+    err_ref = host_reference(prob, ray_perm, pix_perm, b)
+    hist, at_min = held_to(res.err_hist, err_ref, "phantom2d_gpu",
+                           "float64 host reference")
+    say("drivers_rest", driver="phantom2d_gpu", backend=res.backend,
+        run_s=run_s, launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+        min_err=res.min_err, min_err_k=int(np.argmin(res.err_hist)) + 1,
+        final_err=res.final_err, batched_min_err_worst=(
+            res.batched_min_err_worst), gate=res.gate,
+        cold_iters_to_gate=res.cold_iters_to_gate,
+        warm_iters_to_gate=res.warm_iters_to_gate, it_per_s=res.it_per_s,
+        f64_ref_min_err=float(err_ref.min()), f64_ref_hist_rel_diff=hist,
+        f64_ref_min_rel_diff=at_min,
+        results_json_tpu={k: results["phantom2d_tpu"][k]
+                          for k in TPU_RECORD})
+    return launched
+
+
+def hist_gap(card, cpu, steps, label):
+    """The largest relative gap over the first ``steps`` entries of two
+    histories (over their common length), held to DRIVER_RTOL; returns
+    it with the gap over the common length, which is printed only."""
+    n = min(len(card), len(cpu))
+    check(n >= min(steps, len(cpu)), f"{label}: {len(card)} steps on the "
+          f"card, {len(cpu)} on the CPU")
+    rel = np.abs(card[:n] - cpu[:n]) / np.abs(cpu[:n])
+    gap = float(rel[:steps].max())
+    check(gap <= DRIVER_RTOL, f"{label}: card vs CPU {gap:.2e} over the "
+          f"first {steps} steps")
+    return dict(held_steps=min(steps, n), rel_gap=gap,
+                rel_gap_all=float(rel.max()), len_card=len(card),
+                len_cpu=len(cpu))
+
+
+def dense_driver_checks(name, card, cpu):
+    """One dense driver's card result against its CPU float32 result
+    (the bands above the definition of UNSTABLE_K)."""
+    out = {}
+    if name in ("equivalence", "filter_factors_exp", "phantom2d"):
+        for field in ("err_hists", "res_hists"):
+            for k, h in getattr(cpu, field, {}).items():
+                stable = (k.startswith("hybrid") and k != "hybrid_lsqr"
+                          if name != "phantom2d" else
+                          k.startswith("nonhybrid"))
+                out[f"{field} {k}"] = hist_gap(
+                    getattr(card, field)[k], h,
+                    REF_K if stable else UNSTABLE_K, f"{name} {field} {k}")
+    if name == "equivalence":
+        from hybrid_gmres_tpu_torch.experiments import __main__ as cli
+        from hybrid_gmres_tpu_torch.experiments import equivalence
+
+        c, h = (cli._extras(name, equivalence, r) for r in (card, cpu))
+        key = "hybrid_ab_vs_hybrid_lsqr_soldiff"
+        gap = abs(c[key] - h[key]) / h[key]
+        check(gap <= DRIVER_RTOL, f"{name} {key}: {c[key]} vs {h[key]}")
+        eq = "hybrid_ba_vs_hybrid_lsmr_soldiff"
+        check(max(c[eq], h[eq]) <= EQUAL_F32, f"{name} {eq}: {c[eq]} on the "
+              f"card, {h[eq]} on the CPU")
+        check(all(np.isfinite(v) for v in c.values()), f"{name}: {c}")
+        out["soldiff"] = dict(card=c, cpu=h)
+    elif name == "error_surface":
+        for v in ("ab", "ba"):
+            (kc, lc, ec), (kh, lh, eh) = card.optima[v], cpu.optima[v]
+            check((kc, lc) == (kh, lh), f"{name} {v}: optimum {(kc, lc)} "
+                  f"on the card, {(kh, lh)} on the CPU")
+            check(abs(ec - eh) / eh <= DRIVER_RTOL, f"{name} {v}: optimal "
+                  f"error {ec} vs {eh}")
+            surf = np.abs(card.surfaces[v] - cpu.surfaces[v]) / cpu.surfaces[v]
+            out[f"opt_{v}"] = dict(card=card.optima[v], cpu=cpu.optima[v],
+                                   surface_rel_gap_first_k=float(np.nanmax(
+                                       surf[:, :REF_K])))
+    elif name == "filter_factors_exp":
+        for k, phi in cpu.phi_theory.items():
+            check(bool(np.isfinite(card.phi_theory[k]).all()),
+                  f"{name} {k}: non-finite filter factors")
+            out[f"phi_theory {k}"] = float(np.max(np.abs(
+                card.phi_theory[k] - phi)))
+    elif name == "perturbation_bounds":
+        for k in cpu.actual:
+            check(bool(np.isfinite(card.actual[k]).all() and
+                       np.isfinite(card.bound[k]).all()),
+                  f"{name} {k}: non-finite bounds")
+            out[k] = dict(actual_max_abs_gap=float(np.max(np.abs(
+                card.actual[k] - cpu.actual[k]))), bound_max_abs_gap=float(
+                    np.max(np.abs(card.bound[k] - cpu.bound[k]))))
+    elif name in ("noise_sweep", "mismatch_sweep"):
+        for v in ("ab", "ba"):
+            steps = [grid_steps(GCV_GRID, c, h) for c, h in
+                     zip(card.gcv_lambdas[v], cpu.gcv_lambdas[v])]
+            check(max(steps) <= 1.0 + 1e-6, f"{name} {v}: GCV lambdas "
+                  f"{max(steps):.2f} grid steps apart")
+            out[f"gcv_lambda_{v}_max_grid_steps"] = max(steps)
+        for k, e in cpu.final_errors.items():
+            c = card.final_errors[k]
+            check(bool(np.isfinite(c).all()), f"{name} {k}: non-finite")
+            gaps = [abs(c[i] - e[i]) / e[i] for i in (0, -1)]
+            held = k == "hybrid_ab" or (name == "mismatch_sweep" and
+                                        k == "hybrid_ba")
+            if held:
+                check(max(gaps) <= SWEEP_RTOL, f"{name} {k}: low/high "
+                      f"{c[0]}/{c[-1]} on the card, {e[0]}/{e[-1]} on the "
+                      "CPU")
+            out[k] = dict(low=float(c[0]), high=float(c[-1]),
+                          low_cpu=float(e[0]), high_cpu=float(e[-1]),
+                          held=held, rel_gaps=gaps)
+    elif name == "phantom2d":
+        for k, e in cpu.mismatch_errors.items():
+            check(bool(np.isfinite(card.mismatch_errors[k]).all()),
+                  f"{name} {k}: non-finite mismatch sweep")
+            out[f"mismatch {k}"] = float(np.max(np.abs(
+                card.mismatch_errors[k] - e) / e))
+    return out
+
+
+def phase_dense_drivers():
+    """The seven dense drivers at their default Configs on the card and on
+    the CPU port in float32, held to each other as set out above, with the
+    values of ``figures/results.json`` (the JAX package's float64 runs)
+    printed beside them."""
+    import importlib
+
+    from hybrid_gmres_tpu_torch.experiments import __main__ as cli
+
+    results = results_json()
+    out = {}
+    for name in DENSE_DRIVERS:
+        mod = importlib.import_module(
+            f"hybrid_gmres_tpu_torch.experiments.{name}")
+        t0 = time.perf_counter()
+        card = mod.run(mod.Config())
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = mod.run(mod.Config(device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        rec = dict(card_s=card_s, cpu_s=cpu_s,
+                   card=cli._extras(name, mod, card),
+                   results_json={k: v for k, v in results[
+                       cli._JSON_KEY.get(name, name)].items()
+                       if k not in ("time_s", "figures")},
+                   **dense_driver_checks(name, card, cpu))
+        say("drivers_rest", driver=name, **rec)
+        out[name] = card_s
+    return out
+
+
+def phase_cli():
+    """``python -m hybrid_gmres_tpu_torch.experiments equivalence
+    phantom2d_gpu --outdir <tmp>`` on the card: the keys of its
+    ``results.json`` are the JAX file's for those drivers (phantom2d_tpu as
+    phantom2d_gpu), each entry's too but ``figures`` (matplotlib may be
+    missing)."""
+    import os
+    import tempfile
+
+    from hybrid_gmres_tpu_torch.experiments import __main__ as cli
+
+    jax_results = results_json()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        check(cli.main(["equivalence", "phantom2d_gpu", "--outdir", tmp])
+              == 0, "the CLI failed")
+        with open(os.path.join(tmp, "results.json")) as f:
+            got = json.load(f)
+    rename = {"phantom2d_tpu": "phantom2d_gpu"}
+    want = {rename.get(k, k): v for k, v in jax_results.items()
+            if k in ("equivalence", "phantom2d_tpu")}
+    check(set(got) == set(want), f"CLI keys {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        check(set(got[k]) == set(want[k]), f"CLI {k} keys {sorted(got[k])} "
+              f"vs {sorted(want[k])}")
+    say("drivers_rest", driver="cli", seconds=time.perf_counter() - t0,
+        keys={k: sorted(v) for k, v in got.items()},
+        backend=got["phantom2d_gpu"]["backend"],
+        figures={k: v["figures"] for k, v in got.items()})
+
+
+def phase_drivers_rest(prob, ray_perm, pix_perm):
+    """The rest of the experiment drivers at n=64: ``phantom2d_gpu`` on
+    the card (the path of this phase), the seven dense drivers against the
+    CPU port, the CLI.  Returns the launches of ``phantom2d_gpu``."""
+    t0 = time.perf_counter()
+    launched = phase_phantom2d_gpu(prob, ray_perm, pix_perm, results_json())
+    dense = phase_dense_drivers()
+    phase_cli()
+    say("drivers_rest_done", seconds=time.perf_counter() - t0,
+        dense_card_s=dense)
+    return launched
+
+
 def kernel_record(name, source, replaces, launches, path_recs, other_recs,
                   superseded_by=None):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
@@ -2518,29 +2861,43 @@ def main():
         lambda_mm_kernels(P)
         say("stopped", after="kernels")
         return
+    release_plain_caches(P)
     phase_small_reference()
-    main_launches, its, ref0 = phase_main_path(P)
-    serving_launches = phase_serving(P, its, ref0, full=True)
-    gkb = phase_gkb_path(P, GKB_SINGLE, gcv=True)
-    gkb_b = phase_gkb_serving(P, GKB_BATCHED,
-                              {k: v[2] for k, v in gkb.items()}, full=True)
+    with PeakMemory("n=64 main path"):
+        main_launches, its, ref0 = phase_main_path(P)
+    with PeakMemory("n=64 serving"):
+        serving_launches = phase_serving(P, its, ref0, full=True)
+    with PeakMemory("n=64 GKB"):
+        gkb = phase_gkb_path(P, GKB_SINGLE, gcv=True)
+        gkb_b = phase_gkb_serving(P, GKB_BATCHED,
+                                  {k: v[2] for k, v in gkb.items()},
+                                  full=True)
     lsqr_launches = gkb["lsqr"][0]
     lsqr_b_launches = gkb_b["lsqr_batched"]
-    phase_lambda_path(P, full=True)
+    with PeakMemory("n=64 lambda path"):
+        phase_lambda_path(P, full=True)
+    host = (P.prob, P.ray_perm, P.pix_perm)
     del P
     torch.cuda.empty_cache()
+    phantom_launches = phase_drivers_rest(*host)
     P = make_problem(128, adjoint=True)
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
     lmm_128 = lambda_mm_kernels(P)
     P.A_adj = P.B_adj = None        # the n=128 solves need forward panels
-    torch.cuda.empty_cache()
-    _, its, ref0 = phase_main_path(P)
-    phase_serving(P, its, ref0, full=False)
-    gkb = phase_gkb_path(P, ("lsqr",))
-    phase_gkb_serving(P, ("lsqr_batched",),
-                      {k: v[2] for k, v in gkb.items()}, full=False)
-    phase_lambda_path(P, full=False)
+    release_plain_caches(P)
+    with PeakMemory("n=128 main path"):
+        _, its, ref0 = phase_main_path(P)
+    with PeakMemory("n=128 serving"):
+        phase_serving(P, its, ref0, full=False)
+    with PeakMemory("n=128 GKB"):
+        gkb = phase_gkb_path(P, ("lsqr",))
+        phase_gkb_serving(P, ("lsqr_batched",),
+                          {k: v[2] for k, v in gkb.items()}, full=False)
+    with PeakMemory("n=128 lambda path"):
+        phase_lambda_path(P, full=False)
+    say("memory_peaks", card=card, **MEMORY)
+    say("phantom2d_gpu_launches", launches=phantom_launches)
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"

@@ -81,6 +81,6 @@ def figures(res: Results, outdir: str):
     return paths
 
 
-def main(outdir: str = "figures"):
-    res = run()
+def main(outdir: str = "figures_torch", cfg: Config | None = None):
+    res = run(cfg)
     return res, figures(res, outdir)

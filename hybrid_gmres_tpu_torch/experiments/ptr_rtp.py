@@ -84,6 +84,6 @@ def figures(res: Results, outdir: str):
     return [save_figure(fig, outdir, "ptr_rtp.png")]
 
 
-def main(outdir: str = "figures"):
-    res = run()
+def main(outdir: str = "figures_torch", cfg: Config | None = None):
+    res = run(cfg)
     return res, figures(res, outdir)

@@ -140,8 +140,8 @@ def figures(res: Results, outdir: str):
     return paths
 
 
-def main(outdir: str = "figures"):
-    res = run()
+def main(outdir: str = "figures_torch", cfg: Config | None = None):
+    res = run(cfg)
     print(f" Hybrid AB -> GCV Optimal: {res.gcv_lambdas['ab']:.4e}, "
           f"True Optimal: {float(res.sweeps['ab'].lam_true_opt):.4e}")
     print(f" Hybrid BA -> GCV Optimal: {res.gcv_lambdas['ba']:.4e}, "

@@ -46,6 +46,7 @@ Packed int4 nibble pairs (``packed4``) are not ported yet (ROADMAP).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from functools import cached_property
 
@@ -158,6 +159,23 @@ class BucketedBlockELL:
     @property
     def nbytes(self):
         return self.blocks_flat.numel() * self.blocks_flat.element_size()
+
+    def to(self, device) -> "BucketedBlockELL":
+        """The same panel on ``device`` (itself if it is there already):
+        every tensor copied, the bucket views re-cut from the copies."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        views, start = [], 0
+        for blocks, bcols in self.buckets:
+            stop = start + bcols.numel()
+            views.append((moved["blocks_flat"][start:stop].view(blocks.shape),
+                          moved["bcols_flat"][start:stop].view(bcols.shape)))
+            start = stop
+        return dataclasses.replace(self, buckets=tuple(views), **moved)
 
 
 def _slot_counts(blocks, bcols):

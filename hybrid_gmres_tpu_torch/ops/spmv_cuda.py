@@ -36,7 +36,8 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     :func:`row_rmatmat_plain` on a CPU tensor.
 
 The block-ELL K1-K4 stay as the direct counterparts of the Pallas kernels on
-the same panel; no solver launches them.
+the same panel; no solver launches them, and a CUDA operator keeps its panels
+on the host until ``BlockELLOperator.panels_on_device`` asks for them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never falls back
 to the plain version.
@@ -44,6 +45,7 @@ to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -794,18 +796,26 @@ class BlockELLOperator(LinearOperator):
     ``dtype`` reports the COMPUTE dtype (float32 when quantized): reporting
     int8 would make lam-composing wrappers cast lam to int8 (1e-2 -> 0) and
     silently drop the Tikhonov term.  Storage is ``storage_dtype``.
+
+    The block-ELL panels ``fwd``/``adj`` of an operator on the card live on
+    the host: no product reads them, and at CT n=128 they would hold 467 MB
+    of the card beside the forms.  :meth:`panels_on_device` puts them on
+    the card for the block-ELL kernels K1-K4.
     """
 
     def __init__(self, fwd: BucketedBlockELL, adj=None, fwd_scale=None,
                  adj_scale=None, fro_sq=None):
-        self.fwd = fwd
-        self.adj = adj
         self.fwd_scale = fwd_scale  # (m,) f32: y = scale * (Q x)
         self.adj_scale = adj_scale  # (n,) f32 for the transpose panel
         self.fro_sq = fro_sq        # ||A||_F^2 of the SOURCE matrix, f32
         self.fwd_rows = row_packed_from_bell(fwd)
         self.adj_rows = (row_packed_from_bell(fwd, transpose=True)
                          if adj is None else row_packed_from_bell(adj))
+        if fwd.device.type != "cpu":
+            fwd = fwd.to("cpu")
+            adj = None if adj is None else adj.to("cpu")
+        self.fwd = fwd              # the forward panel, on the host
+        self.adj = adj              # the adjoint panel (or None)
 
     @classmethod
     def from_csr(cls, csr, block=(8, 128), dtype=torch.float32,
@@ -844,7 +854,20 @@ class BlockELLOperator(LinearOperator):
 
     @property
     def device(self):
-        return self.fwd.device
+        return self.fwd_rows.device
+
+    @contextlib.contextmanager
+    def panels_on_device(self):
+        """The block-ELL panels ``fwd`` and ``adj`` on the operator's device
+        inside the block, for the block-ELL kernels K1-K4 (which no solver
+        runs), and released on exit: the host copies are back in place."""
+        host = self.fwd, self.adj
+        self.fwd = host[0].to(self.device)
+        self.adj = None if host[1] is None else host[1].to(self.device)
+        try:
+            yield self
+        finally:
+            self.fwd, self.adj = host
 
     @property
     def fro_norm(self):

@@ -117,8 +117,9 @@ def test_gcv_surface_driver_matches_jax(tmp_path):
 
 def test_port_names_cover_the_jax_package():
     """Every public name of the JAX package (its ``__all__``, its solvers'
-    and its ``reg``'s) imports from the port's counterpart, and the drivers
-    ported so far are listed."""
+    and its ``reg``'s) imports from the port's counterpart, every driver of
+    its ``experiments`` is listed (``phantom2d_tpu`` as ``phantom2d_gpu``),
+    and its ``analysis`` names have the port's own counterparts."""
     import hybrid_gmres_tpu as jhg
     import hybrid_gmres_tpu.reg as jreg_pkg
     import hybrid_gmres_tpu.solvers as jsolvers
@@ -135,4 +136,17 @@ def test_port_names_cover_the_jax_package():
             assert callable(getattr(tmod, name)), (tmod.__name__, name)
     for name in treg_pkg.__all__:
         assert getattr(thg, name) is getattr(treg_pkg, name)
-    assert texp.__all__ == ["ptr_rtp", "regularization", "gcv_surface_exp"]
+    # every driver, with the JAX package's TPU driver's counterpart on the
+    # card in its place, and the analysis names
+    import hybrid_gmres_tpu.analysis as janalysis
+    import hybrid_gmres_tpu.experiments as jexp
+    import hybrid_gmres_tpu_torch.analysis as tanalysis
+
+    rename = {"phantom2d_tpu": "phantom2d_gpu"}
+    jdrivers = jexp.__all__ + ["phantom2d_tpu"]
+    assert texp.__all__ == [rename.get(d, d) for d in jdrivers]
+    for name in texp.__all__:
+        assert callable(getattr(texp, name).run), name
+    assert tanalysis.__all__ == janalysis.__all__
+    for name in tanalysis.__all__:
+        assert getattr(tanalysis, name) is not getattr(janalysis, name)

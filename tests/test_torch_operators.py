@@ -267,3 +267,41 @@ def test_ct_gpu_operators_with_adjoint_matches_jax(with_adjoint):
     fwd_only = tspmv.bucket_rmatvec_plain(tA.fwd, u, tA.fwd_scale)
     np.testing.assert_allclose(tA.rmatvec(u).numpy(), fwd_only.numpy(),
                                rtol=0, atol=1e-5 * float(fwd_only.abs().max()))
+
+
+@pytest.mark.parametrize("with_adjoint", [False, True])
+def test_panels_move_between_devices(with_adjoint):
+    """``BucketedBlockELL.to`` copies every tensor of a panel and re-cuts
+    its bucket views from the copies (to the meta device here, which keeps
+    shapes and dtypes); ``panels_on_device`` of a CPU operator keeps its
+    panels where they are, and the operator's products read its forms."""
+    rng = np.random.default_rng(5)
+    # 2400 rows (300 block rows: the packer keeps >= 128 a bucket) from
+    # 0.1% to 5% full, so block rows of many counts and two buckets
+    keep = rng.random((2400, 700)) < np.linspace(1e-3, 0.05, 2400)[:, None]
+    csr = sp.csr_matrix(rng.standard_normal((2400, 700)) * keep)
+    op = tspmv.BlockELLOperator.from_csr(
+        csr, dtype="int8", n_buckets=3, with_adjoint=with_adjoint,
+        device="cpu")
+    bell = op.fwd
+    assert len(bell.buckets) > 1 and bell.to("cpu") is bell
+    meta = bell.to("meta")
+    assert meta.device.type == "meta" and meta.shape == bell.shape
+    for (b, c), (mb, mc) in zip(bell.buckets, meta.buckets):
+        assert (mb.shape, mc.shape) == (b.shape, c.shape)
+        assert mb.device.type == mc.device.type == "meta"
+    for name in ("inv_perm", "pos_off", "col_blk", "seg_off", "col_seg"):
+        got, want = getattr(meta, name), getattr(bell, name)
+        assert got.device.type == "meta" and got.shape == want.shape
+        assert got.dtype == want.dtype
+    assert meta.seg_len == bell.seg_len and meta.ncb == bell.ncb
+    assert op.device == op.fwd_rows.device == torch.device("cpu")
+    x = torch.as_tensor(rng.standard_normal(700))
+    y = op.matvec(x)
+    with op.panels_on_device() as same:
+        assert same is op and op.fwd is bell
+        # both sum in float32, in other orders
+        np.testing.assert_allclose(
+            tspmv.bucket_matvec(op.fwd, x, op.fwd_scale).numpy(), y.numpy(),
+            rtol=0, atol=1e-5 * float(y.abs().max()))
+    assert op.fwd is bell and (op.adj is None) == (not with_adjoint)
