@@ -6,9 +6,9 @@
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
 libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
-the row-packed forms) and drives its three path families on the
-Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
-(360x360 rays):
+the row-packed forms, these also on int4 nibble-packed forms) and drives
+its path families on the Morton-ordered int8 fan-beam CT operators at n=64
+(180x180 rays) and n=128 (360x360 rays), and on their int4 twins:
 
   * the single solve — hybrid BA-GMRES (maxit=100, lam=1e-2, fused
     residual), the scenario of ``bench.py``, through the redesigned K1
@@ -34,7 +34,14 @@ Morton-ordered int8 fan-beam CT operators at n=64 (180x180 rays) and n=128
   * the rest of the drivers — ``phantom2d_gpu`` (the JAX package's
     ``phantom2d_tpu`` on the card: the single solve through the redesigned
     K1, an R=4 deferred serving batch cold and warm through the redesigned
-    K2), the seven dense drivers and the experiments CLI.
+    K2), the seven dense drivers and the experiments CLI;
+  * int4 — ``ct_gpu_operators(dtype="int4")``: the single solve, the
+    serving batch, ``lsqr`` and ``lsqr_batched`` through the int4 variants
+    of the redesigned K1-K4 (``bench.py``'s ``BENCH_DTYPE=int4``);
+  * the sharded path — ``ba_gmres_sharded_pallas`` and
+    ``ab_gmres_sharded_pallas`` at p=1 on a one-rank NCCL group (what one
+    card runs; the twin of ``scripts/sharded_shard_bench.py``), through the
+    redesigned K1 and K3 on each shard's row-packed forms.
 
 The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
@@ -114,7 +121,29 @@ Phases:
  10. the same paths at n=128 (serving: R=8 deferred; GKB: ``lsqr`` and
      ``lsqr_batched``; the float64 reference for column 0; the RTP solvers,
      ``gcv_lambda("ba", residual_space="original")`` and
-     ``discrepancy_lambda("ba")``).
+     ``discrepancy_lambda("ba")``);
+ 11. int4 (after the n=64 lambda path, and the kernels again at n=128):
+     the redesigned K1, K3, K2 and K4 (R=8) on the int4 forms of A and B
+     against their plain versions, twice, column j of K2 (K4) bit-equal to
+     K1 (K3), the library call on the int4 diag(s) Q, timed beside the int8
+     kernel against the int4 form's bound; the forms' bytes against the
+     int8 forms'; at n=64 the single solve (201 int4 K1 launches; history
+     against the float64 host solve on the same int4 matrices; the gate
+     0.4328 x 1.03), the serving batch R=8 deferred (201 K2), ``lsqr`` and
+     ``lsqr_batched`` R=8 (counts from the code), their column 0 against
+     the single solves;
+ 12. sharded (after int4, at n=64 and n=128): a one-rank NCCL group;
+     BA and AB, transposed (``BT_panels``) and forward (``B_panels``)
+     layouts, on p=1 builds of ``shard_bucketed_panels`` put on the card
+     once by ``shard_view`` (bit-equal to the operators' forms), each with
+     K1r/K3r counts from the code, finite, held in the main path's bands to
+     the single-chip solve of the same matrices and to the float64 host
+     solve, BA to the gate, it/s beside the single-chip solve, the NCCL
+     calls of a solve; at n=128 the int8 and int4 forms of p=4 and p=8
+     builds of B,
+     shard by shard through ``shard_view`` against their plain versions
+     and, concatenated and scattered, against the single-chip ``matvec``
+     and ``rmatvec``; the group destroyed at the end of each.
 
 The peak device memory of each solve path (``max_memory_allocated``, reset
 before the path) is printed after it (``memory``) and all together
@@ -127,9 +156,10 @@ row-major block) against its plain version (in column chunks), column j
 bit-equal to the redesigned K1, timed beside the library call and the bound.
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
-record ``{"kernels": [...]}``, the card's name and power limit, and the
-result ``{"ok": true, "device": {...}}``.  ``--kernels`` stops after phase 3
-(at both sizes) and prints neither.
+record ``{"kernels": [...]}`` (the int4 variants as entries of their own),
+the card's name and power limit, and the result ``{"ok": true, "device":
+{...}}``.  ``--kernels`` stops after phase 3 and the int4 kernel checks (at
+both sizes) and prints neither.
 """
 
 from __future__ import annotations
@@ -238,19 +268,29 @@ def time_ms(fn, reps=50):
 def per_call_ms(fn, reps):
     """Milliseconds of each of ``reps`` calls of ``fn()``, each between two
     CUDA events and waited for, after one warm-up call."""
+    return alternating_ms((fn,), reps)[0]
+
+
+def alternating_ms(fns, reps):
+    """Milliseconds of each of ``reps`` calls of every function in
+    ``fns``, the functions taking turns (each call between two CUDA events
+    and waited for), after one warm-up call of each: host noise then falls
+    on all of them alike."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns:
         fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    out = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, times in zip(fns, out):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
     return out
 
 
@@ -400,7 +440,7 @@ def row_work(rp, n_scale, R=1):
     (rows, R), each once.  The padding of the rows to whole vectors is not
     counted (it is reported as ``fill``)."""
     rows, ncols = rp.shape
-    nbytes = (rp.live * (rp.vals.element_size() + rp.cols.element_size())
+    nbytes = (rp.live * (rp.value_bits / 8 + rp.cols.element_size())
               + 4 * (rows + 1) + 4 * rows + 4 * ncols * R + 4 * n_scale
               + 4 * rows * R)
     return nbytes, 2 * rp.live * R
@@ -421,23 +461,24 @@ def rel_err(got, want):
                                                  1e-30)
 
 
-def quantized_csr(csr):
-    """diag(s) Q in float64: the matrix an int8 panel of ``csr`` holds."""
+def quantized_csr(csr, qmax=127):
+    """diag(s) Q in float64: the matrix an int8 panel of ``csr`` holds
+    (an int4 panel with ``qmax=7``)."""
     import scipy.sparse as sp
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import _row_quantize_csr
 
-    csr_q, s = _row_quantize_csr(csr)
+    csr_q, s = _row_quantize_csr(csr, qmax=qmax)
     return (sp.diags(s.astype(np.float64)) @ csr_q).tocsr()
 
 
-def library_csr(csr, transpose=False):
+def library_csr(csr, transpose=False, qmax=127):
     """The library's format of the same matrix (or of its transpose): a
     float32 ``torch.sparse`` CSR tensor on the card (cuSPARSE), 32-bit
-    indices."""
+    indices; ``qmax``: the quantization of the panel (7 for int4)."""
     import torch
 
-    q = quantized_csr(csr.astype(np.float64))
+    q = quantized_csr(csr.astype(np.float64), qmax)
     if transpose:
         q = q.T.tocsr()
     return torch.sparse_csr_tensor(
@@ -1186,9 +1227,10 @@ def solve_batched(P, b, defer, x0=None, maxit=MAXIT, lam=LAM):
                             defer_histories=defer)
 
 
-def scipy_operator(csr):
-    """The float64 host operator diag(s) Q of an int8 panel of ``csr``:
-    scipy CSR products, independent of the kernels."""
+def scipy_operator(csr, qmax=127):
+    """The float64 host operator diag(s) Q of an int8 panel of ``csr`` (of
+    an int4 one with ``qmax=7``): scipy CSR products, independent of the
+    kernels."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
@@ -1197,7 +1239,7 @@ def scipy_operator(csr):
         dtype, device = torch.float64, torch.device("cpu")
 
         def __init__(self, csr):
-            self.csr = quantized_csr(csr)
+            self.csr = quantized_csr(csr, qmax)
             self.csr_t = self.csr.T.tocsr()
             self.shape = self.csr.shape
 
@@ -1210,22 +1252,28 @@ def scipy_operator(csr):
     return ScipyOperator(csr.astype(np.float64))
 
 
-def host_reference(prob, ray_perm, pix_perm, b):
+def host_reference(prob, ray_perm, pix_perm, b, qmax=127, kind="ba",
+                   transposed=False):
     """The same solve in float64 on the host, independent of the kernels:
     scipy CSR products with the exactly quantized operators diag(s) Q (the
-    matrices the int8 panels hold) and the port's float64 single-RHS
-    solver.  Returns the error history."""
+    matrices the int8 panels hold; the int4 ones with ``qmax=7``) and the
+    port's float64 single-RHS solver (``kind``: "ba" or "ab").
+    ``transposed``: B quantized per row of B^T, as the sharded solvers'
+    transposed layout holds it, instead of per pixel.  Returns the error
+    history."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.ordering import reorder_pair
-    from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
+    from hybrid_gmres_tpu_torch.solvers.gmres import ab_gmres, ba_gmres
 
     A, B = reorder_pair(prob.A_csr.astype(np.float32),
                         prob.B_csr.astype(np.float32), ray_perm, pix_perm)
-    r = ba_gmres(scipy_operator(A), scipy_operator(B),
-                 torch.from_numpy(b.astype(np.float64)),
-                 torch.from_numpy(prob.x_true[pix_perm]), tol=0.0,
-                 maxit=MAXIT, lam=LAM, residual="fused")
+    B_op = (scipy_operator(B.T.tocsr(), qmax).T if transposed
+            else scipy_operator(B, qmax))
+    r = {"ba": ba_gmres, "ab": ab_gmres}[kind](
+        scipy_operator(A, qmax), B_op, torch.from_numpy(b.astype(np.float64)),
+        torch.from_numpy(prob.x_true[pix_perm]), tol=0.0, maxit=MAXIT,
+        lam=LAM, residual="fused")
     return r.err_hist.numpy()
 
 
@@ -2806,8 +2854,435 @@ def phase_drivers_rest(prob, ray_perm, pix_perm):
     return launched
 
 
+# --------------------------------------------------------------------------
+# int4 (nibble-packed forms) and the sharded path (p=1 NCCL, shard_view)
+# --------------------------------------------------------------------------
+
+# The int4 gate: bench.py gates an int4 run with int8's band.
+INT4_GATES = {64: 0.4328 * 1.03}
+# the int4 and sharded phases' multi-RHS width
+RHS = 8
+
+
+def int4_operators(P):
+    """The int4 operators of P's problem (``ct_gpu_operators(dtype="int4")``
+    on the card, forward panels only) in a namespace the solve helpers
+    take, with the seconds their packing took."""
+    from hybrid_gmres_tpu_torch.problems.ct import ct_gpu_operators
+
+    t0 = time.perf_counter()
+    A4, B4 = ct_gpu_operators(P.prob, dtype="int4", device="cuda")[:2]
+    return SimpleNamespace(**{**vars(P), "A_op": A4, "B_op": B4,
+                              "A_adj": None, "B_adj": None,
+                              "packing_s": time.perf_counter() - t0})
+
+
+def int4_kernels(P, P4):
+    """The redesigned K1-K4 on the int4 forms of one size: each against its
+    plain version on the card, twice (the same bits), K2's (K4's) column j
+    against K1 (K3) on column j (the same bits), the library call (float32
+    ``torch.sparse`` CSR of the int4 diag(s) Q), timed in turns beside the
+    int8 kernel on the same input, against the bound from the int4 form's
+    live bytes.  The int4 forms' bytes against the int8 forms'.  Returns
+    the records of (K1, K3, K2, K4), A's panel then B's."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        row_matmat, row_matmat_plain, row_matvec, row_matvec_plain,
+        row_rmatmat, row_rmatmat_plain, row_rmatvec, row_rmatvec_plain)
+
+    rng = np.random.default_rng(4)
+    recs = {k: [] for k in ("K1", "K3", "K2", "K4")}
+    for tag, op4, op8, csr in (("A", P4.A_op, P.A_op, P.A_csr),
+                               ("B", P4.B_op, P.B_op, P.B_csr)):
+        m, n = op4.shape
+        s4, s8 = op4.fwd_scale, op8.fwd_scale
+        panel = f"n={P.n} {tag} int4"
+        forms = dict(rows_mb=op4.fwd_rows.nbytes / 1e6,
+                     rows_t_mb=op4.adj_rows.nbytes / 1e6,
+                     int8_rows_mb=op8.fwd_rows.nbytes / 1e6,
+                     int8_rows_t_mb=op8.adj_rows.nbytes / 1e6)
+        check(op4.fwd_rows.nbytes < op8.fwd_rows.nbytes and
+              op4.adj_rows.nbytes < op8.adj_rows.nbytes,
+              f"{panel}: the int4 forms are not smaller than the int8 forms "
+              f"({forms})")
+        say("int4_forms", panel=panel, **forms,
+            ratio=op4.fwd_rows.nbytes / op8.fwd_rows.nbytes,
+            ratio_t=op4.adj_rows.nbytes / op8.adj_rows.nbytes)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                            device="cuda")
+        u = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                            device="cuda")
+        X = torch.as_tensor(rng.standard_normal((n, RHS)),
+                            dtype=torch.float32, device="cuda")
+        U = torch.as_tensor(rng.standard_normal((m, RHS)),
+                            dtype=torch.float32, device="cuda")
+        Xt, Ut = X.T.contiguous().T, U.T.contiguous().T  # solvers' layout
+        lib, lib_t = library_csr(csr, qmax=7), library_csr(
+            csr, transpose=True, qmax=7)
+        for kernel, rp, rp8, fn, plain, single, v, lv, args, args8, R in (
+                ("K1", op4.fwd_rows, op8.fwd_rows, row_matvec,
+                 row_matvec_plain, None, x, lib, (s4,), (s8,), 1),
+                ("K3", op4.adj_rows, op8.adj_rows, row_rmatvec,
+                 row_rmatvec_plain, None, u, lib_t, (s4,), (s8,), 1),
+                ("K2", op4.fwd_rows, op8.fwd_rows, row_matmat,
+                 row_matmat_plain, row_matvec, Xt, lib, (s4,), (s8,), RHS),
+                ("K4", op4.adj_rows, op8.adj_rows, row_rmatmat,
+                 row_rmatmat_plain, row_rmatvec, Ut, lib_t, (s4,), (s8,),
+                 RHS)):
+            label = f"{panel}: {kernel} redesigned"
+            got, want, again = fn(rp, v, *args), plain(rp, v, *args), \
+                fn(rp, v, *args)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"{label} output not finite or misshaped")
+            err = rel_err(got, want)
+            check(err <= KERNEL_RTOL, f"{label} vs plain {err:.3e}")
+            repeat = float((got - again).abs().max())
+            check(repeat == 0.0, f"{label} differs between two runs")
+            col_diff = None
+            if single is not None:
+                col_diff = max(float((got[:, j] - single(
+                    rp, v[:, j].contiguous(), *args)).abs().max())
+                    for j in range(R))
+                check(col_diff == 0.0, f"{label}: a column differs from the "
+                      f"single-RHS kernel on it by {col_diff:.3e}")
+            lib_diff = rel_err(lv @ v, got)
+            check(lib_diff <= LIBRARY_RTOL, f"{label} vs library "
+                  f"{lib_diff:.3e}")
+            run_k, run_p = partial(fn, rp, v, *args), partial(plain, rp, v,
+                                                              *args)
+            run_8 = partial(fn, rp8, v, *args8)
+            p1, k1, i1, i2, k2, p2 = (time_ms(run_p, 10), time_ms(run_k),
+                                      time_ms(run_8), time_ms(run_8),
+                                      time_ms(run_k), time_ms(run_p, 10))
+            work = row_work(rp, m, R=R)
+            b_ms, b_by = bound([work])
+            ms = (k1 + k2) / 2
+            rec = dict(
+                panel=panel, shape=[m, n], kernel=f"{kernel} redesigned int4",
+                R=R, ms=ms, plain_ms=(p1 + p2) / 2, int8_ms=(i1 + i2) / 2,
+                library_ms=time_ms(lambda: lv @ v), bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms,
+                int8_bound_ms=bound([row_work(rp8, m, R=R)])[0], work=work,
+                max_abs_err=float((got - want).abs().max()), max_rel_err=err,
+                repeat_max_diff=repeat, column_vs_single_max_diff=col_diff,
+                library_max_rel_diff=lib_diff, form_shape=list(rp.shape),
+                lanes=rp.lanes, fill=rp.fill, live=rp.live,
+                form_mb=rp.nbytes / 1e6, int8_form_mb=rp8.nbytes / 1e6,
+                index_bits=32 if rp.wide else 16)
+            say("kernel_vs_plain", **rec)
+            recs[kernel].append(rec)
+    release_plain_caches(P4)
+    release_plain_caches(P)
+    return recs["K1"], recs["K3"], recs["K2"], recs["K4"]
+
+
+def phase_int4_path(P4, int8_its, int8_min):
+    """The n=64 int4 main path and its multi-RHS and GKB twins: each run
+    with the counts reset before and read after.  The single solve
+    (``ba_gmres``, lam=1e-2, 100 steps, fused) through the int4 K1 (201
+    launches) against the float64 host solve on the same int4-quantized
+    matrices (first REF_K entries to REF_RTOL, minimum to REF_MIN_RTOL) and
+    the gate; the serving batch (R=8, deferred) through the int4 K2 (201),
+    column 0 against the single solve; ``lsqr`` through the int4 K1 and K3,
+    ``lsqr_batched`` (R=8) through the int4 K2 and K4, counts from the code,
+    column 0 against ``lsqr``.  Returns the launches of (K1r, K3r, K2r,
+    K4r), each from its run."""
+    import torch
+
+    n = P4.n
+    reset_counts()
+    r = solve(P4)
+    torch.cuda.synchronize()
+    launched = counts()
+    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
+    check(launched == want, f"n={n} int4: {LAUNCHES} launches {launched} in "
+          f"the single solve, expected {want}")
+    err = r.err_hist.cpu().numpy()
+    check(bool(np.isfinite(err).all() and torch.isfinite(r.x).all()),
+          f"n={n} int4: non-finite results")
+    ms = per_call_ms(lambda: solve(P4), reps=5)
+    t0 = time.perf_counter()
+    err_ref = host_reference(P4.prob, P4.ray_perm, P4.pix_perm, P4.b_host,
+                             qmax=7)
+    ref_s = time.perf_counter() - t0
+    hist, at_min = held_to(err, err_ref, f"n={n} int4",
+                           "float64 host reference (int4 Q)")
+    min_err = float(err.min())
+    check(min_err <= INT4_GATES[n], f"n={n} int4: min-over-k rel err "
+          f"{min_err:.4f} > gate {INT4_GATES[n]:.4f}")
+    b8 = torch.as_tensor(noisy_sinograms(P4, range(RHS)), device="cuda")
+    rb, launched_b = counted_batched(P4, b8, True, 2 * MAXIT + 1,
+                                     f"n={n} int4 serving R={RHS}")
+    col0 = held_to(rb.err_hist[:, 0].cpu().numpy(), err,
+                   f"n={n} int4 serving column 0", "the single int4 solve")
+    rl, launched_l = gkb_counted("lsqr", P4.A_op, P4.b, P4.x_true, MAXIT,
+                                 f"n={n} int4 lsqr")
+    rlb, launched_lb = gkb_counted("lsqr_batched", P4.A_op, b8, P4.x_true,
+                                   MAXIT, f"n={n} int4 lsqr_batched R={RHS}")
+    lsqr_col0 = held_to(rlb.err_hist[:, 0].cpu().numpy(),
+                        rl.err_hist.cpu().numpy(),
+                        f"n={n} int4 lsqr_batched column 0",
+                        "the single int4 lsqr", bands=GKB_BANDS)
+    med = float(np.median(ms))
+    say("int4_path", n=n, packing_s=P4.packing_s,
+        launches_single=launched, launches_serving=launched_b,
+        launches_lsqr=launched_l, launches_lsqr_batched=launched_lb,
+        solve_ms_median=med, iters_per_s=MAXIT / (med / 1e3),
+        int8_iters_per_s=int8_its,
+        min_err=min_err, min_err_k=int(err.argmin()) + 1,
+        gate=INT4_GATES[n], int8_min_err=int8_min,
+        jax_docstring_claim_min_err=0.4333,
+        f64_ref_min_err=float(err_ref.min()), f64_ref_hist_rel_diff=hist,
+        f64_ref_min_rel_diff=at_min, f64_ref_s=ref_s,
+        serving_column0_vs_single=col0,
+        lsqr_min_err=float(rl.err_hist.min()),
+        lsqr_batched_column0_vs_single=lsqr_col0)
+    return launched[4], launched_l[5], launched_b[6], launched_lb[7]
+
+
+def sharded_launches(kind, forward, maxit=MAXIT):
+    """(K1r, K3r) launches of one sharded solve, worked out from the code:
+    A's rows through K1 every step; B per step through K3 (transposed
+    layout) or K1 (forward); BA applies B once more for r0 = B b."""
+    b_calls = maxit + (kind == "ba")
+    return (maxit + b_calls, 0) if forward else (maxit, b_calls)
+
+
+def phase_sharded(P, err_ref_ba, B4=None):
+    """The sharded solvers at p=1 on a one-rank NCCL group (what runs on
+    one card): ``ba_gmres_sharded_pallas`` and ``ab_gmres_sharded_pallas``
+    on P's int8 CT operator in the transposed (``BT_panels``) and forward
+    (``B_panels``) layouts.  The panels are what a user builds:
+    ``shard_bucketed_panels(csr, 1)`` on the host, put on the card once by
+    ``shard_view`` (and held bit-equal to the operators' forms).  Each
+    solve runs with the counts reset before and read after (K1r/K3r
+    against the code), gives a finite history and x, is held in the main
+    path's bands (first REF_K entries to REF_RTOL, minimum to REF_MIN_RTOL)
+    to the single-chip solve of the same matrices on the card and to the
+    float64 host solve (``err_ref_ba``: the main path's, BA forward), BA
+    also to the gate, and is timed in turns with the single-chip solve
+    (it/s), with the NCCL calls of one solve.  The transposed layout
+    quantizes B^T per ray, the single-chip path B per pixel: its
+    references are the single-chip solve with ``BT_op.T`` (K3 on the same
+    int8 B^T) and the host solve with B^T quantized alike, and its gap to
+    the production pair is printed.  ``B4``: P's int4 operator of B; when
+    given, also the forms of p=4 and p=8 builds, int8 and int4, shard by
+    shard (:func:`shard_view_checks`).  The group is destroyed at the end
+    of the phase.  Returns the launches of the BA transposed solve, the
+    records and the shard_view records."""
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_pallas, ba_gmres_sharded_pallas, make_mesh,
+        shard_bucketed_panels)
+    from hybrid_gmres_tpu_torch.parallel.panels import shard_view
+    from hybrid_gmres_tpu_torch.problems.ct import (BLOCK_A, BLOCK_B,
+                                                    N_BUCKETS)
+    from hybrid_gmres_tpu_torch.solvers.gmres import ab_gmres, ba_gmres
+
+    n = P.n
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        t1 = time.perf_counter()
+        BT_csr = P.B_csr.T.tocsr()
+        BT_op = BlockELLOperator.from_csr(BT_csr, dtype="int8",
+                                          n_buckets=N_BUCKETS,
+                                          with_adjoint=False, device="cuda")
+        pack = dict(dtype=np.int8, n_buckets=N_BUCKETS)
+        A_p, BT_p, B_p = (
+            shard_view(shard_bucketed_panels(csr, 1, **pack, **blk), 0,
+                       mesh.device)
+            for csr, blk in ((P.A_csr, dict(block=BLOCK_A)), (BT_csr, {}),
+                             (P.B_csr, dict(block=BLOCK_B))))
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t1
+        for built, op in ((A_p, P.A_op), (BT_p, BT_op), (B_p, P.B_op)):
+            same_forms(built, op, f"n={n} p=1 shard_bucketed_panels")
+        kw = dict(tol=0.0, maxit=MAXIT, lam=LAM)
+        single = {"ba": ba_gmres, "ab": ab_gmres}
+        sharded = {"ba": ba_gmres_sharded_pallas,
+                   "ab": ab_gmres_sharded_pallas}
+        host_ref = {("ba", True): err_ref_ba}
+        recs, ba_t = [], None
+        for kind in ("ba", "ab"):
+            for layout in ("transposed", "forward"):
+                fwd = layout == "forward"
+                label = f"n={n} sharded p=1 {kind} {layout}"
+                B_ref = P.B_op if fwd else BT_op.T
+
+                def run_sharded():
+                    return sharded[kind](
+                        A_p, None if fwd else BT_p, P.b, P.x_true,
+                        mesh=mesh, B_panels=B_p if fwd else None, **kw)
+
+                def run_single():
+                    return single[kind](P.A_op, B_ref, P.b, P.x_true,
+                                        residual="fused", **kw)
+
+                calls0 = dict(mesh.calls)
+                reset_counts()
+                with HostSyncs() as syncs:
+                    r = run_sharded()
+                torch.cuda.synchronize()
+                launched = counts()
+                nccl = {c: mesh.calls[c] - calls0.get(c, 0)
+                        for c in mesh.calls}
+                k1r, k3r = sharded_launches(kind, fwd)
+                want = (0, 0, 0, 0, k1r, k3r, 0, 0)
+                check(launched == want, f"{label}: {LAUNCHES} launches "
+                      f"{launched}, expected {want}")
+                err = r.err_hist.cpu().numpy()
+                ref = run_single()
+                err_ref = ref.err_hist.cpu().numpy()
+                check(tuple(r.x.shape) == (P.A_op.shape[1],) and bool(
+                    np.isfinite(err).all() and torch.isfinite(r.x).all()),
+                    f"{label}: non-finite or misshaped result")
+                check(bool(np.isfinite(err_ref).all() and
+                           torch.isfinite(ref.x).all()),
+                      f"{label}: the single-chip solve is not finite")
+                check(int(r.niters) == MAXIT, f"{label}: niters "
+                      f"{int(r.niters)}")
+                hist, at_min = held_to(err, err_ref, label,
+                                       "the single-chip solve")
+                t2 = time.perf_counter()
+                if (kind, fwd) not in host_ref:
+                    host_ref[kind, fwd] = host_reference(
+                        P.prob, P.ray_perm, P.pix_perm, P.b_host, kind=kind,
+                        transposed=not fwd)
+                ref_s = time.perf_counter() - t2
+                hist64, at_min64 = held_to(err, host_ref[kind, fwd], label,
+                                           "the float64 host solve")
+                prod = err_ref if fwd else single[kind](
+                    P.A_op, P.B_op, P.b, P.x_true, residual="fused",
+                    **kw).err_hist.cpu().numpy()
+                ms_sh, ms_1 = alternating_ms((run_sharded, run_single), 5)
+                its, its1 = (MAXIT / (float(np.median(v)) / 1e3)
+                             for v in (ms_sh, ms_1))
+                if kind == "ba" and not fwd:
+                    ba_t = launched
+                rec = dict(
+                    n=n, kind=kind, layout=layout, launches=launched,
+                    nccl_calls=nccl, nccl_calls_per_iter=sum(nccl.values())
+                    / MAXIT, host_syncs=syncs.count, iters_per_s=its,
+                    single_chip_iters_per_s=its1, ratio=its / its1,
+                    solve_ms=ms_sh, single_chip_solve_ms=ms_1,
+                    min_err=float(err.min()),
+                    single_chip_min_err=float(err_ref.min()),
+                    hist_rel_diff=hist, min_rel_diff=at_min,
+                    f64_ref_min_err=float(host_ref[kind, fwd].min()),
+                    f64_ref_hist_rel_diff=hist64,
+                    f64_ref_min_rel_diff=at_min64, f64_ref_s=ref_s,
+                    production_pair_min_err=float(prod.min()),
+                    gap_to_production_pair=abs(
+                        float(err.min()) - float(prod.min()))
+                    / float(prod.min()))
+                # bench.py's gate is the BA scenario's
+                check(kind == "ab" or rec["min_err"] <= GATES[n],
+                      f"{label}: min-over-k rel err {rec['min_err']:.4f} > "
+                      f"gate {GATES[n]:.4f}")
+                say("sharded", **rec)
+                recs.append(rec)
+        views = None if B4 is None else shard_view_checks(P, B4)
+        say("sharded_done", n=n, seconds=time.perf_counter() - t0,
+            packing_s=pack_s, panels_mb=dict(
+                A=A_p.nbytes / 1e6, BT=BT_p.nbytes / 1e6, B=B_p.nbytes / 1e6))
+        return ba_t, recs, views
+    finally:
+        dist.destroy_process_group()
+
+
+def same_forms(view, op, label):
+    """A single-shard view holds the operator's forms and row scales, bit
+    for bit."""
+    import torch
+
+    sh = view.shards[0]
+    for fa, fb in ((sh.fwd_rows, op.fwd_rows), (sh.adj_rows, op.adj_rows)):
+        check((fa.shape, fa.lanes, fa.live) == (fb.shape, fb.lanes, fb.live)
+              and all(torch.equal(getattr(fa, f), getattr(fb, f))
+                      for f in ("vals", "cols", "vec_off", "row_map")),
+              f"{label}: the forms differ from the operator's")
+    check(torch.equal(sh.row_scale, op.fwd_scale), f"{label}: row scales")
+
+
+def shard_view_checks(P, B4):
+    """The forms of p=4 and p=8 builds of B (int8, and int4 as ``B4``
+    holds it), one shard at a time on the card through ``shard_view`` and
+    ``host_window_x``: each shard's K1 and K3 against their plain versions,
+    the concatenated K1 outputs against the single-chip ``matvec`` and the
+    scattered K3 partials summed against ``rmatvec``.  B rather than A:
+    the same kernels on 11.8M instead of 26.4M entries, half the host
+    packing.  Returns a record per build."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        row_matvec_plain, row_rmatvec_plain)
+    from hybrid_gmres_tpu_torch.parallel import shard_bucketed_panels
+    from hybrid_gmres_tpu_torch.parallel.panels import (
+        host_window_x, local_matvec, local_rmatvec_window,
+        scatter_window_to_full, shard_view)
+    from hybrid_gmres_tpu_torch.problems.ct import BLOCK_B, N_BUCKETS
+
+    rng = np.random.default_rng(8)
+    m, n = P.B_op.shape
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device="cuda")
+    u = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                        device="cuda")
+    out = []
+    for dtype, op in (("int8", P.B_op), ("int4", B4)):
+        y_ref, z_ref = op.matvec(x), op.rmatvec(u)
+        for p in (4, 8):
+            t0 = time.perf_counter()
+            sp_ = shard_bucketed_panels(
+                P.B_csr, p, block=BLOCK_B, n_buckets=N_BUCKETS,
+                dtype=np.int8 if dtype == "int8" else "int4")
+            build_s = time.perf_counter() - t0
+            mloc = m // p
+            ys, z = [], torch.zeros(n, device="cuda")
+            worst = 0.0
+            for i in range(p):
+                view = shard_view(sp_, i, "cuda")
+                shard = view.shards[0]
+                xw = host_window_x(sp_, i, x)
+                ui = u[i * mloc:(i + 1) * mloc]
+                yi = local_matvec(view, xw)
+                zi = local_rmatvec_window(view, ui)
+                worst = max(
+                    worst, rel_err(yi, row_matvec_plain(
+                        shard.fwd_rows, xw, shard.row_scale)),
+                    rel_err(zi, row_rmatvec_plain(
+                        shard.adj_rows, ui, shard.row_scale)))
+                ys.append(yi)
+                z += scatter_window_to_full(view, zi)
+                del view, shard
+            torch.cuda.synchronize()
+            label = f"n={P.n} B {dtype} p={p} shard_view"
+            check(worst <= KERNEL_RTOL, f"{label}: a shard's kernel vs "
+                  f"plain {worst:.3e}")
+            ey, ez = rel_err(torch.cat(ys), y_ref), rel_err(z, z_ref)
+            check(max(ey, ez) <= KERNEL_RTOL, f"{label}: shards against the "
+                  f"single-chip products {ey:.3e} (A x), {ez:.3e} (A^T u)")
+            rec = dict(n=P.n, dtype=dtype, p=p, windowed=sp_.windowed,
+                       shifts=list(sp_.shifts), build_s=build_s,
+                       forms_mb=sp_.nbytes / 1e6,
+                       shard_vs_plain_max_rel=worst, concat_vs_matvec=ey,
+                       scatter_vs_rmatvec=ez)
+            say("shard_view", **rec)
+            out.append(rec)
+    return out
+
+
 def kernel_record(name, source, replaces, launches, path_recs, other_recs,
-                  superseded_by=None):
+                  superseded_by=None, **extra):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
     ``library_ms`` and ``bound_ms`` are this kernel's work in one iteration
     of its n=64 path (``path_recs``: A's panel then B's for BA-GMRES, A's
@@ -2825,7 +3300,7 @@ def kernel_record(name, source, replaces, launches, path_recs, other_recs,
         plain_ms=sum(s["plain_ms"] for s in path_recs),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=sum(s["library_ms"] for s in path_recs),
-        shapes=path_recs + other_recs)
+        shapes=path_recs + other_recs, **extra)
 
 
 def phase_lambda_path(P, full):
@@ -2854,11 +3329,13 @@ def main():
     lmm_64 = lambda_mm_kernels(P)
     phase_small_kernels()
     if "--kernels" in sys.argv[1:]:      # a short call: builds and kernels
+        int4_kernels(P, int4_operators(P))
         del P
         torch.cuda.empty_cache()
         P = make_problem(128, adjoint=True)
         phase_ct_kernels(P)
         lambda_mm_kernels(P)
+        int4_kernels(P, int4_operators(P))
         say("stopped", after="kernels")
         return
     release_plain_caches(P)
@@ -2876,6 +3353,15 @@ def main():
     lsqr_b_launches = gkb_b["lsqr_batched"]
     with PeakMemory("n=64 lambda path"):
         phase_lambda_path(P, full=True)
+    t0 = time.perf_counter()
+    P4 = int4_operators(P)
+    k1i4_64, k3i4_64, k2i4_64, k4i4_64 = int4_kernels(P, P4)
+    with PeakMemory("n=64 int4 path"):
+        int4_launches = phase_int4_path(P4, its, P.ptr_min)
+    del P4
+    say("int4_done", n=64, seconds=time.perf_counter() - t0)
+    with PeakMemory("n=64 sharded"):
+        sharded_launches_64, sharded_64, _ = phase_sharded(P, ref0)
     host = (P.prob, P.ray_perm, P.pix_perm)
     del P
     torch.cuda.empty_cache()
@@ -2884,7 +3370,7 @@ def main():
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
     lmm_128 = lambda_mm_kernels(P)
-    P.A_adj = P.B_adj = None        # the n=128 solves need forward panels
+    P.A_adj = P.B_adj = None     # the n=128 solves need forward panels
     release_plain_caches(P)
     with PeakMemory("n=128 main path"):
         _, its, ref0 = phase_main_path(P)
@@ -2896,8 +3382,17 @@ def main():
                           {k: v[2] for k, v in gkb.items()}, full=False)
     with PeakMemory("n=128 lambda path"):
         phase_lambda_path(P, full=False)
+    t0 = time.perf_counter()
+    P4 = int4_operators(P)
+    k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
+    say("int4_done", n=128, seconds=time.perf_counter() - t0)
+    with PeakMemory("n=128 sharded"):
+        _, sharded_128, views = phase_sharded(P, ref0, P4.B_op)
+    del P4
     say("memory_peaks", card=card, **MEMORY)
     say("phantom2d_gpu_launches", launches=phantom_launches)
+    say("sharded_summary", card=card, runs=sharded_64 + sharded_128,
+        shard_view=views)
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
@@ -2906,14 +3401,29 @@ def main():
     # on the same panel, checked and timed in phase 3
     print(json.dumps({"kernels": [
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
-                      main_launches[4], k1r_64, k1r_128),
+                      main_launches[4], k1r_64, k1r_128,
+                      sharded_launches=sharded_launches_64[4]),
         kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
                       serving_launches[6], k2r_64,
                       k2r_128 + lmm_64 + lmm_128),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
-                      lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128),
+                      lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128,
+                      sharded_launches=sharded_launches_64[5]),
         kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",
                       lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128),
+        # the int4 variants (nibble-packed forms), each with the launches
+        # of its n=64 int4 path: the single solve (K1), lsqr (K3), the
+        # serving batch (K2), lsqr_batched (K4)
+        kernel_record("row_matvec int4", csrc + "row_spmv.cu",
+                      pallas + ":46", int4_launches[0], k1i4_64, k1i4_128),
+        kernel_record("row_rmatvec int4", csrc + "row_spmv.cu",
+                      pallas + ":101", int4_launches[1], k3i4_64[:1],
+                      k3i4_64[1:] + k3i4_128),
+        kernel_record("row_matmat int4", csrc + "row_spmv.cu",
+                      pallas + ":220", int4_launches[2], k2i4_64, k2i4_128),
+        kernel_record("row_rmatmat int4", csrc + "row_spmv.cu",
+                      pallas + ":279", int4_launches[3], k4i4_64[:1],
+                      k4i4_64[1:] + k4i4_128),
         kernel_record("bucket_matvec", csrc + "bucket_spmv.cu",
                       pallas + ":46", main_launches[0], k1_64, k1_128,
                       superseded_by="row_matvec"),

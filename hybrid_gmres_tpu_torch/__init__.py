@@ -5,8 +5,11 @@ paths and public names so each counterpart is easy to find.  It imports
 ``torch``, ``numpy`` and ``scipy`` only — never ``jax``.
 
 On the CUDA path every sparse product runs as a hand-written Hopper kernel
-on the operator's row-packed forms: ``csrc/row_spmv.cu`` (SpMV, SpMM and
-their transposed twins, built with ``nvcc`` at first use).  The block-ELL
+on the operator's row-packed forms (int8, or int4 nibble pairs):
+``csrc/row_spmv.cu`` (SpMV, SpMM and their transposed twins, built with
+``nvcc`` at first use).  ``hybrid_gmres_tpu_torch.parallel`` runs the 1-D
+sharded GMRES solvers on ``torch.distributed`` (NCCL, or gloo on the
+CPU).  The block-ELL
 kernels of the earlier ports (``csrc/bucket_*.cu``) stay as checked
 counterparts of the Pallas kernels on no solver's path.  On CPU tensors
 every operator uses its plain PyTorch version.  Constructors build on the

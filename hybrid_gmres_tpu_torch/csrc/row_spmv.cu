@@ -15,9 +15,10 @@
 //
 // Format (hybrid_gmres_tpu_torch/ops/sparse.py:RowPacked): rows padded to
 // vectors of V = 8 entries; values in the panel's storage type (f32, bf16,
-// int8), columns as uint16 when the matrix has at most 65536 of them, int32
-// otherwise; vec_off[r] the first vector of packed row r, row_map[r] its
-// original row.  Inside a row, vectors are interleaved at pack time so that
+// int8, or int4 as nibble pairs: a vector's 8 values in one 32-bit word,
+// slot j in bits 4j..4j+3), columns as uint16 when the matrix has at most
+// 65536 of them, int32 otherwise; vec_off[r] the first vector of packed
+// row r, row_map[r] its original row.  Inside a row, vectors are interleaved at pack time so that
 // the lanes of one step gather neighbouring entries (in the order of the
 // source panel's blocks) together.
 //
@@ -37,7 +38,10 @@
 //     16-byte load (two for int32), coalesced across the lanes of a row, two
 //     vectors in flight per lane;
 //   * int8 -> float by __byte_perm into a float's mantissa and one FADD
-//     (exact), not I2F, which runs at a fraction of the FMA rate;
+//     (exact), not I2F, which runs at a fraction of the FMA rate; int4 the
+//     same way, a nibble at a time from one 4-byte load per vector (the
+//     Pallas kernels' packed4 panels, spmv_pallas.py:64-69: about 2.5 bytes
+//     a stored entry with uint16 indices, against 3 for int8);
 //   * the gathered vector through the read-only cache (__ldg), or staged in
 //     shared memory (XS, when it fits: A's x at CT n=128 is 64 KB), with
 //     the gathered scale multiplied in once while staging.
@@ -64,8 +68,33 @@ constexpr size_t MAX_SMEM = 200 * 1024;  // of the 227 KB a block may have
 template <typename T>
 struct Vals;
 
+// Two int4 values in one byte, low nibble first (two's complement): the
+// storage unit of a packed4 form.
+struct Nib4 {
+  uint8_t b;
+};
+
+// int4 v -> float exactly: the nibble v ^ 8 = v + 8 placed in the mantissa
+// of 2^23, minus 2^23 + 8.  w holds the vector's 8 nibbles, each already
+// xor-ed with 8.
+__device__ __forceinline__ float nibble(unsigned w, int j) {
+  return __uint_as_float(0x4B000000u | ((w >> (4 * j)) & 0xFu)) - 8388616.0f;
+}
+
+template <>
+struct Vals<Nib4> {
+  static constexpr int kPer = V / 2;  // storage units of one vector
+  __device__ __forceinline__ static void load(const Nib4* p, float f[V]) {
+    const unsigned w =
+        __ldg(reinterpret_cast<const unsigned*>(p)) ^ 0x88888888u;
+#pragma unroll
+    for (int j = 0; j < V; ++j) f[j] = nibble(w, j);
+  }
+};
+
 template <>
 struct Vals<int8_t> {
+  static constexpr int kPer = V;
   // int8 v -> float exactly: the byte v ^ 0x80 = v + 128 placed in the
   // mantissa of 2^23, minus 2^23 + 128.
   __device__ __forceinline__ static void load(const int8_t* p, float f[V]) {
@@ -84,6 +113,7 @@ struct Vals<int8_t> {
 
 template <>
 struct Vals<__nv_bfloat16> {
+  static constexpr int kPer = V;
   __device__ __forceinline__ static void load(const __nv_bfloat16* p,
                                               float f[V]) {
     const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
@@ -98,6 +128,7 @@ struct Vals<__nv_bfloat16> {
 
 template <>
 struct Vals<float> {
+  static constexpr int kPer = V;
   __device__ __forceinline__ static void load(const float* p, float f[V]) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(p));
     const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -152,7 +183,7 @@ __device__ __forceinline__ float vector_dot(const T* __restrict__ vals,
                                             int64_t k, float acc) {
   float a[V], xv[V];
   int c[V];
-  Vals<T>::load(vals + k * V, a);
+  Vals<T>::load(vals + k * Vals<T>::kPer, a);
   Cols<I>::load(cols + k * V, c);
 #pragma unroll
   for (int j = 0; j < V; ++j) xv[j] = fetch<IN, XS>(xs, x, in_scale, c[j]);
@@ -200,9 +231,10 @@ __global__ void __launch_bounds__(BLOCK)
       for (; k + lanes < end; k += 2 * lanes) {
         float a[V], b[V], xa[V], xb[V];
         int ca[V], cb[V];
-        Vals<T>::load(vals + static_cast<int64_t>(k) * V, a);
+        Vals<T>::load(vals + static_cast<int64_t>(k) * Vals<T>::kPer, a);
         Cols<I>::load(cols + static_cast<int64_t>(k) * V, ca);
-        Vals<T>::load(vals + static_cast<int64_t>(k + lanes) * V, b);
+        Vals<T>::load(vals + static_cast<int64_t>(k + lanes) * Vals<T>::kPer,
+                      b);
         Cols<I>::load(cols + static_cast<int64_t>(k + lanes) * V, cb);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
@@ -307,7 +339,8 @@ cudaError_t launch_index(int wide, bool xs, const Args& a) {
 
 }  // namespace
 
-// C entry point, loaded with ctypes.  dtype: 0 float32, 1 bfloat16, 2 int8;
+// C entry point, loaded with ctypes.  dtype: 0 float32, 1 bfloat16, 2 int8,
+// 3 int4 (nibble pairs);
 // wide: 1 for int32 column indices, 0 for uint16; xs: 1 to stage the
 // gathered vector in shared memory.  in_scale (ncols,) and out_scale (rows,)
 // may be null.  Returns the cudaError_t of the launch (0 on success).
@@ -339,6 +372,9 @@ extern "C" int row_spmv(int dtype, int wide, int xs, const void* vals,
       break;
     case 2:
       err = launch_index<int8_t>(wide, xs != 0, a);
+      break;
+    case 3:
+      err = launch_index<Nib4>(wide, xs != 0, a);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -397,7 +433,18 @@ template <typename T>
 struct RawVals;
 
 template <>
+struct RawVals<Nib4> {
+  static constexpr int kPer = V / 2;
+  unsigned w;
+  __device__ __forceinline__ void load(const Nib4* p) {
+    w = __ldg(reinterpret_cast<const unsigned*>(p)) ^ 0x88888888u;
+  }
+  __device__ __forceinline__ float get(int j) const { return nibble(w, j); }
+};
+
+template <>
 struct RawVals<int8_t> {
+  static constexpr int kPer = V;
   uint2 w;
   __device__ __forceinline__ void load(const int8_t* p) {
     w = __ldg(reinterpret_cast<const uint2*>(p));
@@ -411,6 +458,7 @@ struct RawVals<int8_t> {
 
 template <>
 struct RawVals<__nv_bfloat16> {
+  static constexpr int kPer = V;
   uint4 w;
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     w = __ldg(reinterpret_cast<const uint4*>(p));
@@ -423,6 +471,7 @@ struct RawVals<__nv_bfloat16> {
 
 template <>
 struct RawVals<float> {
+  static constexpr int kPer = V;
   float4 a, b;
   __device__ __forceinline__ void load(const float* p) {
     a = __ldg(reinterpret_cast<const float4*>(p));
@@ -545,7 +594,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT)
       for (int k = vec_off[r] + l; k < end; k += lanes) {
         RawVals<T> a;
         RawCols<I> c;
-        a.load(vals + static_cast<int64_t>(k) * V);
+        a.load(vals + static_cast<int64_t>(k) * RawVals<T>::kPer);
         c.load(cols + static_cast<int64_t>(k) * V);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
@@ -726,6 +775,9 @@ extern "C" int row_spmm(int dtype, int wide, int k4, int gather, int threads,
       break;
     case 2:
       err = launch_mm_index<int8_t>(wide, k4, gather, threads, a);
+      break;
+    case 3:
+      err = launch_mm_index<Nib4>(wide, k4, gather, threads, a);
       break;
     default:
       err = cudaErrorInvalidValue;

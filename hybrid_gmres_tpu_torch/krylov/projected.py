@@ -21,10 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from hybrid_gmres_tpu_torch.utils.device import (
-    full_float32_matmul,
-    scalar_tensor,
-)
+from hybrid_gmres_tpu_torch.utils.device import scalar_tensor
 
 
 def _over(v, ndim: int):
@@ -64,22 +61,28 @@ def projected_ls_solve(H, t, kdim):
 
 def projected_tikhonov_solve(H, t, lam, kdim):
     """Tikhonov-projected solve ``(H'H + lam I) y = H' t`` on the active
-    block (the reference's shifted normal equations), by Cholesky.  The
-    Gram ``H'H`` squares the conditioning, so it is formed in full float32
-    whatever the caller set for TF32 (:func:`full_float32_matmul`)."""
+    block (the reference's shifted normal equations), by Cholesky.
+
+    The Gram ``H'H`` squares the conditioning of ``H``: in float32, once
+    the Krylov space has taken in the small singular values, a ``lam``
+    below the Gram's rounding (``eps ||H||^2``) leaves it indefinite, the
+    Cholesky meets a non-positive pivot and ``y`` turns NaN (AB-GMRES on
+    CT at n=128 on the card, ``scripts_torch/ab_gram_check.py``).  So the
+    Gram, the Cholesky and the solve run in float64 whatever the working
+    dtype (a ``(maxit, maxit)`` system), and ``y`` is rounded back to
+    ``H``'s dtype."""
     maxit = H.shape[-1]
     dtype, device = H.dtype, H.device
-    H = mask_columns(H, kdim)
+    work = torch.float64
+    H = mask_columns(H, kdim).to(work)
     active = _active(maxit, kdim, device)
-    lam = _over(scalar_tensor(lam, dtype, device), 2)
-    with full_float32_matmul():
-        HtH = H.mT @ H
-        rhs = H.mT @ t[..., None]
-    G = HtH + lam * torch.eye(maxit, dtype=dtype, device=device) + \
-        torch.diag_embed((~active).to(dtype))
+    lam = _over(scalar_tensor(lam, work, device), 2)
+    G = H.mT @ H + lam * torch.eye(maxit, dtype=work, device=device) + \
+        torch.diag_embed((~active).to(work))
     L, _ = torch.linalg.cholesky_ex(G)
-    y = torch.cholesky_solve(rhs, L)[..., 0]
-    return torch.where(active, y, torch.zeros((), dtype=dtype, device=device))
+    y = torch.cholesky_solve(H.mT @ t.to(work)[..., None], L)[..., 0]
+    return torch.where(active, y.to(dtype),
+                       torch.zeros((), dtype=dtype, device=device))
 
 
 def projected_gram_tikhonov_solve(G_full, rhs_full, lam, kdim):

@@ -41,7 +41,12 @@ single-RHS products (``csrc/row_spmv.cu``), built by
 the same stored values: the nonzero entries only, in the panel's storage
 type, with 16-bit column indices where the columns allow.
 
-Packed int4 nibble pairs (``packed4``) are not ported yet (ROADMAP).
+int4 panels (``packed4``): the JAX package stores two logical int4 blocks
+in the nibbles of each int8 byte along the block axis.  The container
+unpacks them on the host into logical int8 blocks in [-7, 7] and records
+``packed4``; the block-ELL kernels run on that panel as int8.  The compact
+storage lives in the row-packed form, which every product reads: two
+entries a byte (:func:`pack_nibbles`).
 """
 
 from __future__ import annotations
@@ -55,8 +60,32 @@ import torch
 
 from hybrid_gmres_tpu_torch.utils.device import require_device
 
-_INT4_TODO = ("packed int4 panels (packed4) are not ported yet: see ROADMAP "
-              "queue 1, item 5f")
+
+def pack_nibbles(vals):
+    """int8 values in [-8, 7] (an even count) -> int8 bytes of two's
+    complement nibble pairs: entry ``2i`` in the low nibble of byte ``i``,
+    entry ``2i + 1`` in its high nibble.  A zero entry is a zero nibble."""
+    pairs = vals.to(torch.int32).reshape(-1, 2) & 15
+    return (pairs[:, 0] | (pairs[:, 1] << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_nibbles(packed):
+    """The inverse of :func:`pack_nibbles`, with the JAX kernels' shifts
+    (``ops/spmv_pallas.py``): int8 values, two per byte, low nibble
+    first."""
+    raw = packed.to(torch.int32)
+    lo = (raw << 28) >> 28
+    hi = (raw << 24) >> 28
+    return torch.stack([lo, hi], dim=-1).reshape(
+        *packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def _unpack_blocks(blocks):
+    """A JAX ``packed4`` bucket (nbr_b, maxb_pk, br, bc) of nibble bytes ->
+    its logical int8 blocks (nbr_b, 2 maxb_pk, br, bc): byte j of a
+    block-row holds logical block 2j (low nibble) and 2j + 1 (high)."""
+    raw = torch.tensor(np.asarray(blocks).view(np.int8))
+    return unpack_nibbles(raw.movedim(1, -1)).movedim(-1, 1).numpy()
 
 
 @dataclass
@@ -84,6 +113,7 @@ class BucketedBlockELL:
     seg_off: torch.Tensor      # (segments + 1,) int32 into col_blk/col_row
     col_seg: torch.Tensor      # (ncb + 1,) int32 into seg_off
     seg_len: int               # most blocks in one segment
+    packed4: bool = False      # int4 values (held as int8 in [-7, 7])
 
     @classmethod
     def from_numpy(cls, buckets, inv_perm, shape, ncb, packed4=False,
@@ -94,10 +124,19 @@ class BucketedBlockELL:
         raises without one (pass ``"cpu"`` for the CPU path).
         ``dtype``: torch storage dtype (default: the blocks' own; bfloat16
         arrays from ``ml_dtypes`` are reinterpreted bit for bit).
-        ``packed4=True`` (int4 nibble pairs) is rejected: not ported yet.
+        ``packed4=True``: the JAX package's int4 layout (nibble-pair bytes
+        along the block axis, one ``bcols`` entry per logical block), which
+        is unpacked here into logical int8 blocks.
         """
         if packed4:
-            raise NotImplementedError(_INT4_TODO)
+            buckets = [(_unpack_blocks(b), c) for b, c in buckets]
+        return cls._from_logical(buckets, inv_perm, shape, ncb, packed4,
+                                 device, dtype)
+
+    @classmethod
+    def _from_logical(cls, buckets, inv_perm, shape, ncb, packed4, device,
+                      dtype):
+        """Container from logical (unpacked) per-bucket numpy arrays."""
         device = require_device(device)
         br, bc = buckets[0][0].shape[2:]
         flat_b, flat_c, offs, cnts = [], [], [], []
@@ -142,6 +181,7 @@ class BucketedBlockELL:
             seg_off=torch.as_tensor(seg_off, device=device),
             col_seg=torch.as_tensor(col_seg, device=device),
             seg_len=seg_len,
+            packed4=bool(packed4),
         )
 
     @property
@@ -281,9 +321,15 @@ class RowPacked:
     most 65536 columns (read it with ``& 0xFFFF``), int32 otherwise.  Build
     with :func:`row_packed_from_bell`; the products are
     ``ops.spmv_cuda.row_matvec`` / ``row_rmatvec``.
+
+    ``packed4``: the form of an int4 panel.  ``vals`` then holds the values
+    as nibble pairs (:func:`pack_nibbles`), a vector of VEC entries in
+    VEC / 2 bytes (slot ``2i`` in the low nibble of byte ``i``, ``2i + 1``
+    in the high one); the pack order, the lanes and the padding (a zero
+    nibble) are those of the int8 form of the same panel.
     """
 
-    vals: torch.Tensor      # (vectors * VEC,) storage dtype
+    vals: torch.Tensor      # (vectors * VEC,) storage dtype; int4: / 2 bytes
     cols: torch.Tensor      # (vectors * VEC,) int16 (uint16 bits) or int32
     vec_off: torch.Tensor   # (rows + 1,) int32: first vector of each row
     row_map: torch.Tensor   # (rows,) int32: packed row -> original row
@@ -291,10 +337,29 @@ class RowPacked:
     lanes: int              # threads per row, a power of two
     live: int               # stored nonzeros; the rest is padding
     group: int              # source blocks' extent along the columns
+    packed4: bool = False   # values as int4 nibble pairs
 
     @property
     def dtype(self):
         return self.vals.dtype
+
+    @property
+    def value_bits(self):
+        """Bits of one stored value: 4 for an int4 form."""
+        return 4 if self.packed4 else 8 * self.vals.element_size()
+
+    def entry_values(self):
+        """The stored values, one per entry (int4 forms decoded to int8)."""
+        return unpack_nibbles(self.vals) if self.packed4 else self.vals
+
+    def to(self, device) -> "RowPacked":
+        """The same form on ``device`` (itself if it is there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in ("vals", "cols", "vec_off", "row_map")})
 
     @property
     def device(self):
@@ -308,7 +373,7 @@ class RowPacked:
     @property
     def fill(self):
         """Share of the stored entries that are nonzeros, not padding."""
-        return self.live / max(self.vals.numel(), 1)
+        return self.live / max(self.cols.numel(), 1)
 
     @property
     def nbytes(self):
@@ -383,11 +448,13 @@ def pack_positions(vec_off, lanes):
     return vec_row, p
 
 
-def _pack_rows(row, key, col, vals, nrows, ncols, group, device):
+def _pack_rows(row, key, col, vals, nrows, ncols, group, device,
+               packed4=False):
     """The row-packed form of the entries ``(row[i], col[i], vals[i])``
     (numpy int64 rows, pack-order keys and columns, a 1-D torch tensor of
     values, each (row, column) at most once); each row's pack order is
-    ascending ``key``."""
+    ascending ``key``.  ``packed4``: int8 values in [-8, 7], stored as
+    nibble pairs."""
     order = np.argsort(row * (int(key.max(initial=0)) + 1) + key,
                        kind="stable")
     row, col = row[order], col[order]
@@ -413,13 +480,15 @@ def _pack_rows(row, key, col, vals, nrows, ncols, group, device):
     cols = col[src]
     cols = (cols.astype(np.uint16).view(np.int16) if ncols <= U16_COLS
             else cols.astype(np.int32))
+    if packed4:
+        packed_vals = pack_nibbles(packed_vals)
     return RowPacked(
         vals=packed_vals.to(device),
         cols=torch.from_numpy(cols).to(device),
         vec_off=torch.from_numpy(vec_off.astype(np.int32)).to(device),
         row_map=torch.from_numpy(row_map.astype(np.int32)).to(device),
         shape=(int(nrows), int(ncols)), lanes=lanes, live=int(len(row)),
-        group=int(group))
+        group=int(group), packed4=bool(packed4))
 
 
 def row_packed_from_bell(bell: BucketedBlockELL,
@@ -428,9 +497,9 @@ def row_packed_from_bell(bell: BucketedBlockELL,
     transpose), built from its live blocks: the slots below each position's
     ``pos_cnt`` on positions that are not bucket padding.  Entries that are
     exactly zero are dropped; the values keep the panel's storage type, so
-    the form holds the panel's matrix exactly.  Each row's pack order
-    follows the panel's blocks (see :class:`RowPacked`).  Lives on the
-    panel's device."""
+    the form holds the panel's matrix exactly (an int4 panel's as nibble
+    pairs).  Each row's pack order follows the panel's blocks (see
+    :class:`RowPacked`).  Lives on the panel's device."""
     br, bc = bell.block_shape
     m, n = bell.shape
     pos_off = bell.pos_off.cpu().numpy()
@@ -454,10 +523,14 @@ def row_packed_from_bell(bell: BucketedBlockELL,
     keep = (row < m) & (col < n)
     row, col = row[keep], col[keep]
     vals = blocks.reshape(-1)[torch.from_numpy(flat[keep])]
+    if bell.packed4 and len(vals) and not bool(
+            ((vals >= -8) & (vals <= 7)).all()):
+        raise ValueError("an int4 panel holds values outside [-8, 7]")
     if transpose:   # a column's entries by the panel's flat block order
         return _pack_rows(col, b[keep] * br + r[keep], row, vals, n, m, br,
-                          bell.device)
-    return _pack_rows(row, col, col, vals, m, n, bc, bell.device)
+                          bell.device, bell.packed4)
+    return _pack_rows(row, col, col, vals, m, n, bc, bell.device,
+                      bell.packed4)
 
 
 def _to_torch(arr, device, dtype):
@@ -484,11 +557,15 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
     ``dtype``: numpy storage dtype, or ``torch.bfloat16`` (packed in float32
     on the host, rounded to bfloat16 by torch).  ``device``: where the panel
     lives; the default is the card, and it raises without one.
+    ``pack_int4``: the CSR values must already be integers in [-7, 7]; the
+    panel is the logical int8 panel of the JAX ``packed4`` one (each
+    bucket's block axis padded to even, as the nibble packing pads it),
+    marked ``packed4``.
     """
     import scipy.sparse as sp
 
     if pack_int4:
-        raise NotImplementedError(_INT4_TODO)
+        dtype = np.int8
     device = require_device(device)
     torch_dtype = dtype if isinstance(dtype, torch.dtype) else None
     np_dtype = np.float32 if torch_dtype is not None else np.dtype(dtype)
@@ -530,6 +607,11 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
             src = np.repeat(bsr.indptr[rows], lens) + offs
             blocks[dest_r, offs] = bsr.data[src].astype(np_dtype)
             bcols[dest_r, offs] = bsr.indices[src]
+        if pack_int4 and maxb_b % 2:   # the JAX nibble packing's padding
+            blocks = np.concatenate([blocks, np.zeros_like(blocks[:, :1])],
+                                    axis=1)
+            bcols = np.concatenate([bcols, np.zeros_like(bcols[:, :1])],
+                                   axis=1)
         buckets.append((blocks, bcols))
         sorted_rows.append(np.concatenate(
             [rows, np.full(nbr_b - len(rows), -1, dtype=np.int64)]
@@ -538,6 +620,6 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
     inv_perm = np.zeros(nbr, np.int32)
     valid = sorted_rows >= 0
     inv_perm[sorted_rows[valid]] = np.nonzero(valid)[0].astype(np.int32)
-    return BucketedBlockELL.from_numpy(
-        buckets, inv_perm, (m, n), n_pad // bc, device=device,
-        dtype=torch_dtype)
+    return BucketedBlockELL._from_logical(
+        buckets, inv_perm, (m, n), n_pad // bc, pack_int4, device,
+        torch_dtype)

@@ -23,9 +23,10 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
   * :func:`row_matvec` (K1 redesigned) and :func:`row_rmatvec` (K3
     redesigned) are the single-RHS products that ``BlockELLOperator.matvec``
     and ``.rmatvec`` run: one template in ``csrc/row_spmv.cu`` on the
-    row-packed form of ``ops/sparse.py`` (int8 values and 16- or 32-bit
-    column indices, 3-5 bytes per nonzero where the block-ELL panel reads
-    9-15), one launch per application, every sum in a fixed order;
+    row-packed form of ``ops/sparse.py`` (int8 values, or int4 nibble
+    pairs, and 16- or 32-bit column indices, 2.5-5 bytes per nonzero where
+    the block-ELL panel reads 9-15), one launch per application, every sum
+    in a fixed order;
     :func:`row_matvec_plain` and :func:`row_rmatvec_plain` on a CPU tensor.
   * :func:`row_matmat` (K2 redesigned) and :func:`row_rmatmat` (K4
     redesigned) are the multi-RHS products that ``.matmat``,
@@ -62,8 +63,10 @@ from hybrid_gmres_tpu_torch.ops.sparse import (
 )
 from hybrid_gmres_tpu_torch.utils.device import require_device
 
-# kernel dtype codes, matching bucket_spmv.cu
+# kernel dtype codes, matching bucket_spmv.cu; row_spmv.cu also takes the
+# int4 nibble pairs of a packed4 form
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+INT4_CODE = 3
 _BLOCK_ROWS = (8, 16, 32)
 # widest block each kernel takes: K1, K3 and K4 run one thread per block
 # column, K2 caps its thread blocks at 512 threads
@@ -420,7 +423,8 @@ def _row_plain(rp: RowPacked, v, in_scale, out_scale):
     if in_scale is not None:
         V = in_scale.to(torch.float32)[:, None] * V
     R = V.shape[1]
-    prod = rp.vals[src].to(torch.float64)[:, None] * V.to(torch.float64)[cols]
+    prod = (rp.entry_values()[src].to(torch.float64)[:, None]
+            * V.to(torch.float64)[cols])
     seg = torch.zeros((seg_steps[0][0].shape[0] if seg_steps else 0, R),
                       dtype=torch.float32, device=v.device)
     for idx, at in seg_steps:
@@ -455,8 +459,8 @@ def _row_checks(name, rp: RowPacked, v, in_scale, out_scale):
     """The argument checks of the row-packed kernels; returns the dtype code
     and the float32 contiguous scales (or None)."""
     rows, ncols = rp.shape
-    code = _DTYPE_CODES.get(rp.dtype)
-    if code is None:
+    code = INT4_CODE if rp.packed4 else _DTYPE_CODES.get(rp.dtype)
+    if code is None or (rp.packed4 and rp.dtype != torch.int8):
         raise TypeError(f"{name}: no kernel for {rp.dtype} values")
     if v.shape[0] != ncols:
         want = (ncols,) if v.ndim == 1 else (ncols, "R")
@@ -764,12 +768,13 @@ def _row_quantize_csr(csr, qmax: int = 127):
 
 
 def _storage_dtype(dtype):
-    """A torch dtype or its name -> torch.float32 / bfloat16 / int8."""
-    if dtype == "int4":
-        raise NotImplementedError("int4 panels are not ported yet: see "
-                                  "ROADMAP queue 1, item 5f")
+    """A torch dtype or its name -> torch.float32 / bfloat16 / int8 /
+    int4 (``torch.int4``, a dtype with no arithmetic: it names the
+    nibble-packed storage)."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype, dtype)
+    if dtype == torch.int4:
+        return dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"unsupported panel dtype {dtype!r}")
     return dtype
@@ -792,10 +797,13 @@ class BlockELLOperator(LinearOperator):
     ``dtype=int8`` stores per-row symmetrically quantized blocks with f32 row
     scales (``A ~= diag(s) Q``), applied in the kernel epilogue.  The adjoint
     panel holds the SAME quantized ``Q^T``, so ``<A x, u> == <x, A^T u>``.
+    ``dtype="int4"`` quantizes the same way with ``qmax = 7``; its panels
+    are ``packed4`` and its forms store two values a byte.
 
     ``dtype`` reports the COMPUTE dtype (float32 when quantized): reporting
     int8 would make lam-composing wrappers cast lam to int8 (1e-2 -> 0) and
-    silently drop the Tikhonov term.  Storage is ``storage_dtype``.
+    silently drop the Tikhonov term.  Storage is ``storage_dtype``
+    (``torch.int4`` for an int4 operator).
 
     The block-ELL panels ``fwd``/``adj`` of an operator on the card live on
     the host: no product reads them, and at CT n=128 they would hold 467 MB
@@ -821,28 +829,29 @@ class BlockELLOperator(LinearOperator):
     def from_csr(cls, csr, block=(8, 128), dtype=torch.float32,
                  n_buckets: int = 4, with_adjoint: bool = True,
                  device="cuda"):
-        """Pack a scipy CSR matrix.  ``dtype``: float32, bfloat16 or int8,
-        as a torch dtype or its name.  ``device``: where the panels live;
-        the default is the card, and it raises without one (pass ``"cpu"``
-        for the CPU path)."""
+        """Pack a scipy CSR matrix.  ``dtype``: float32, bfloat16, int8 or
+        ``"int4"``, as a torch dtype or its name.  ``device``: where the
+        panels live; the default is the card, and it raises without one
+        (pass ``"cpu"`` for the CPU path)."""
         device = require_device(device)
         dt = _storage_dtype(dtype)
-        np_dt = np.int8 if dt == torch.int8 else (
+        is_int4 = dt == torch.int4
+        np_dt = np.int8 if dt in (torch.int8, torch.int4) else (
             np.float32 if dt == torch.float32 else dt)
         fwd_scale = None
         fro_sq = torch.tensor(float((csr.multiply(csr)).sum()),
                               dtype=torch.float32, device=device)
         csr_fwd = csr
         csr_adj = csr.T.tocsr() if with_adjoint else None
-        if dt == torch.int8:
-            csr_fwd, s = _row_quantize_csr(csr, qmax=127)
+        if dt in (torch.int8, torch.int4):
+            csr_fwd, s = _row_quantize_csr(csr, qmax=7 if is_int4 else 127)
             fwd_scale = torch.as_tensor(s, device=device)
             if with_adjoint:
                 # ONE quantization: the adjoint panel is Q^T and rmatvec
                 # pre-scales u by fwd_scale (exact transpose of matvec)
                 csr_adj = csr_fwd.T.tocsr()
         pack = dict(block=block, dtype=np_dt, n_buckets=n_buckets,
-                    device=device)
+                    pack_int4=is_int4, device=device)
         fwd = bucketed_block_ell_from_csr(csr_fwd, **pack)
         adj = bucketed_block_ell_from_csr(csr_adj, **pack) if with_adjoint \
             else None
@@ -882,7 +891,7 @@ class BlockELLOperator(LinearOperator):
 
     @property
     def storage_dtype(self):
-        return self.fwd.dtype
+        return torch.int4 if self.fwd.packed4 else self.fwd.dtype
 
     def matvec(self, x):
         return row_matvec(self.fwd_rows, x, self.fwd_scale)

@@ -13,12 +13,18 @@ parity tests, so ``device`` is a required keyword.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
 from hybrid_gmres_tpu_torch.ops.sparse import BucketedBlockELL
 from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
+from hybrid_gmres_tpu_torch.parallel.panels import (
+    ShardedPanels,
+    _shard_forms,
+)
 from hybrid_gmres_tpu_torch.solvers.common import (
     GKBResult,
     GKBState,
@@ -118,3 +124,43 @@ def gkb_result_from_numpy(result, *, device) -> GKBResult:
     state = getattr(result, "state", None)
     return GKBResult(state=None if state is None else gkb_state_from_numpy(
         state, device=device), **out)
+
+
+def sharded_panels_from_numpy(buckets, inv_perm, win_start, shape, ncb,
+                              win_slabs, slab_blocks, shifts, row_group, p,
+                              packed4=False, row_scale=None, fro_sq=None,
+                              fwd_perm=None, *, device) -> ShardedPanels:
+    """The port's ``ShardedPanels`` from the leaves of a JAX one, numpy
+    arrays under the JAX constructor's names: the stacked per-bucket
+    ``(blocks (p, nbr_b, maxb, br, bc), bcols (p, ...))`` with
+    window-relative columns (nibble pairs when ``packed4``), ``inv_perm``
+    (p, nbr), the window description, ``row_scale`` (p, m/p) or None,
+    ``fro_sq``.  Each shard's two forms are built from its slice of the
+    stacked panels and put on ``device``; ``fwd_perm`` is not needed by the
+    forms and is ignored."""
+    m, n = shape
+    mloc = m // p
+    br, bc = np.asarray(buckets[0][0]).shape[3:]
+    sp_ = ShardedPanels(
+        shards=(), shape=(m, n), ncb=int(ncb), win_slabs=int(win_slabs),
+        slab_blocks=int(slab_blocks), shifts=tuple(int(v) for v in shifts),
+        p=int(p), block_shape=(int(br), int(bc)), row_group=int(row_group),
+        packed4=bool(packed4),
+        fro_sq=None if fro_sq is None else torch.tensor(
+            np.asarray(fro_sq, np.float32)))
+    inv_perm = np.asarray(inv_perm)
+    win_start = np.asarray(win_start).reshape(-1)
+    shards = []
+    for i in range(p):
+        per = []
+        for blocks, bcols in buckets:
+            blk = np.asarray(blocks)[i]
+            per.append((blk, np.asarray(bcols)[i].reshape(blk.shape[0], -1)))
+        bell = BucketedBlockELL.from_numpy(
+            per, inv_perm[i], (mloc, sp_.win_len), sp_.win_blocks,
+            packed4=packed4, device="cpu")
+        scale = None if row_scale is None else torch.as_tensor(
+            np.array(row_scale, np.float32)[i])
+        shards.append(_shard_forms(bell, scale, 0, win_start[i],
+                                   bell.shape, bell.ncb).to(device))
+    return dataclasses.replace(sp_, shards=tuple(shards))

@@ -156,6 +156,36 @@ def test_arnoldi_and_projected_solves_match_jax():
             rtol=1e-12)
 
 
+def test_tikhonov_solve_float32_below_the_grams_rounding():
+    """A float32 Hessenberg whose Gram H'H rounds far above lam (||H||^2 =
+    1e8, lam = 1e-2, singular values down to 1e-4), as AB-GMRES on CT meets
+    it: a float32 Cholesky of H'H + lam I finds a non-positive pivot, the
+    port's solve (Gram and Cholesky in float64) gives a finite y within
+    rel 1e-5 of the float64 least-squares solution of [H; sqrt(lam) I] y
+    ~ [t; 0] (no Gram) on the same float32 H, zero beyond kdim."""
+    rng = np.random.default_rng(5)
+    maxit, kdim, lam = 30, 24, 1e-2
+    U = np.linalg.qr(rng.standard_normal((kdim + 1, kdim + 1)))[0]
+    V = np.linalg.qr(rng.standard_normal((kdim, kdim)))[0]
+    sv = np.logspace(4, -4, kdim)
+    H = np.zeros((maxit + 1, maxit), np.float32)
+    H[:kdim + 1, :kdim] = (U[:, :kdim] * sv) @ V.T
+    t = np.zeros(maxit + 1, np.float32)
+    t[:kdim + 1] = rng.standard_normal(kdim + 1)
+    Ht, tt = torch.from_numpy(H), torch.from_numpy(t)
+    G32 = Ht[:, :kdim].T @ Ht[:, :kdim] + lam * torch.eye(kdim)
+    assert int(torch.linalg.cholesky_ex(G32)[1]) > 0
+    y = tproj.projected_tikhonov_solve(Ht, tt, lam, kdim)
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert not y[kdim:].any()
+    Hk = H[:, :kdim].astype(np.float64)
+    want = np.linalg.lstsq(np.vstack([Hk, np.sqrt(lam) * np.eye(kdim)]),
+                           np.concatenate([t, np.zeros(kdim)]),
+                           rcond=None)[0]
+    err = np.max(np.abs(y[:kdim].numpy() - want)) / np.max(np.abs(want))
+    assert err <= 1e-5, err
+
+
 @pytest.mark.parametrize("lam", [None, 1e-2, 0.37, "gcv", "gcv-final",
                                  [1e-2, 2e-2, 5e-3]])
 def test_fingerprint_matches_jax(lam):

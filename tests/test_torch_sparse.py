@@ -192,8 +192,8 @@ def test_unported_kernels_raise_on_a_device_tensor():
     row-packed form that the operator's products run, and every wrapper
     takes only CPU and CUDA tensors: they raise on any other device (the
     meta device stands in here) and never fall back to their plain
-    versions.  What is still not ported (int4 panels) raises
-    ``NotImplementedError`` naming its queue item."""
+    versions.  int4 panels are ported too: their operator builds, and its
+    wrappers raise on another device the same way."""
     op = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
                                          with_adjoint=False, device="cpu")
     for name, call in (
@@ -218,9 +218,17 @@ def test_unported_kernels_raise_on_a_device_tensor():
                 op.fwd, torch.zeros((300, 2), device="meta")))):
         with pytest.raises(ValueError, match=f"{name}: unsupported device"):
             call()
-    with pytest.raises(NotImplementedError, match="int4"):
-        tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
-                                        dtype="int4", device="cpu")
+    op4 = tspmv.BlockELLOperator.from_csr(_random_csr(m=300, n=200),
+                                          dtype="int4", with_adjoint=False,
+                                          device="cpu")
+    assert op4.fwd_rows.packed4 and op4.storage_dtype == torch.int4
+    for name, call in (
+            ("row_matvec", lambda: op4.matvec(torch.zeros(200,
+                                                          device="meta"))),
+            ("row_rmatmat", lambda: op4.rmatmat(torch.zeros(
+                (300, 2), device="meta")))):
+        with pytest.raises(ValueError, match=f"{name}: unsupported device"):
+            call()
     # the CPU plain paths still work
     X = torch.randn(200, 2)
     np.testing.assert_allclose(
