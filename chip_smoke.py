@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py             # every phase (one H100, ~6 minutes)
+    python3 chip_smoke.py             # every phase (one H100, ~10 minutes)
     python3 chip_smoke.py --kernels   # build and kernel phases only
+    python3 chip_smoke.py --sharded   # build and the two sharded phases
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
 libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
@@ -41,7 +42,12 @@ its path families on the Morton-ordered int8 fan-beam CT operators at n=64
   * the sharded path — ``ba_gmres_sharded_pallas`` and
     ``ab_gmres_sharded_pallas`` at p=1 on a one-rank NCCL group (what one
     card runs; the twin of ``scripts/sharded_shard_bench.py``), through the
-    redesigned K1 and K3 on each shard's row-packed forms.
+    redesigned K1 and K3 on each shard's row-packed forms; then the rest of
+    the 1-D tier on the same group and panels: the sharded RTP and GKB
+    solvers (K1 and K3; K1 on both forms of an adjoint pair) and the
+    sharded serving batch ``ba/ab_gmres_sharded_batched`` (the twin of
+    ``scripts/sharded_batched_bench.py``) through the redesigned K2 and K4
+    on each shard's forms.
 
 The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
@@ -143,7 +149,24 @@ Phases:
      builds of B,
      shard by shard through ``shard_view`` against their plain versions
      and, concatenated and scattered, against the single-chip ``matvec``
-     and ``rmatvec``; the group destroyed at the end of each.
+     and ``rmatvec``, and the same at R=8 for K2 and K4 (``local_matmat``,
+     ``local_rmatmat_window``; column j bit-equal to K1/K3 on column j;
+     each shard's call timed beside the single-chip K2r/K4r); the group
+     destroyed at the end of each;
+ 13. sharded_solvers (on phase 12's group and p=1 panels): at n=128
+     ``ba_gmres_rtp_sharded`` and ``ab_gmres_rtp_sharded``, ``lsqr_sharded``
+     and ``hybrid_lsqr_sharded``, ``lsqr_sharded`` on
+     ``build_panels_with_adjoint(A, 1, int8)``, ``ba_gmres_sharded_batched``
+     (R=8 in-loop and deferred, R=16 in two chunks) and
+     ``ab_gmres_sharded_batched`` (R=8 deferred), the NCCL calls of an R=1
+     batch, and the float32 Gram solves of both AB-RTPs (LU failures,
+     smallest eigenvalue); at n=64 (50 steps) ``lsmr_sharded``,
+     ``hybrid_lsmr_sharded``, ``lsqr_sharded`` on ``ComposedPanels(A, BT,
+     "ba")`` and the forward layout for BA-RTP and the R=8 deferred batch.
+     Each with its launches from the code, finite, held to the single-chip
+     solve of the same matrices (GMRES-type: the main path's bands; GKB:
+     6 steps to 1e-3, the minimum to GKB_MIN_RTOL) and, where one exists,
+     the float64 host solve, timed in turns with it (5 each).
 
 The peak device memory of each solve path (``max_memory_allocated``, reset
 before the path) is printed after it (``memory``) and all together
@@ -159,7 +182,8 @@ Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}`` (the int4 variants as entries of their own),
 the card's name and power limit, and the result ``{"ok": true, "device":
 {...}}``.  ``--kernels`` stops after phase 3 and the int4 kernel checks (at
-both sizes) and prints neither.
+both sizes) and prints neither; ``--sharded`` runs only phases 12 and 13
+(their float64 references computed for them) and prints neither.
 """
 
 from __future__ import annotations
@@ -2000,10 +2024,16 @@ def rtp_launches(name, maxit):
     return 3 * maxit + 1, (maxit if name.startswith("ab") else 0)
 
 
-def host_operators(P):
-    """The float64 host operators of A and B (scipy CSR), made once."""
+def host_operators(P, transposed=False):
+    """The float64 host operators of A and B (scipy CSR), made once.
+    ``transposed``: B quantized per row of B^T, as the sharded solvers'
+    transposed layout holds it, instead of per pixel."""
     if getattr(P, "host_A", None) is None:
         P.host_A = scipy_operator(P.A_csr)
+    if transposed:
+        if getattr(P, "host_BT", None) is None:
+            P.host_BT = scipy_operator(P.B_csr.T.tocsr()).T
+        return P.host_A, P.host_BT
     if getattr(P, "host_B", None) is None:
         P.host_B = scipy_operator(P.B_csr)
     return P.host_A, P.host_B
@@ -2048,13 +2078,14 @@ def column_cache(op):
     return ColumnCache()
 
 
-def host_reference_rtp(P, name, steps=MAXIT):
+def host_reference_rtp(P, name, steps=MAXIT, transposed=False):
     """RTP solver ``name`` of the port in float64 on the host, ``steps``
     steps, with the scipy operators of A and B (AB-RTP's through
-    :func:`column_cache`).  Returns the error history."""
+    :func:`column_cache`; ``transposed`` as in :func:`host_operators`).
+    Returns the error history."""
     import torch
 
-    A, B = host_operators(P)
+    A, B = host_operators(P, transposed)
     if name.startswith("ab"):
         A = column_cache(A)
     r = rtp_solver(name)(A, B, torch.from_numpy(P.b_host.astype(np.float64)),
@@ -3050,7 +3081,7 @@ def sharded_launches(kind, forward, maxit=MAXIT):
     return (maxit + b_calls, 0) if forward else (maxit, b_calls)
 
 
-def phase_sharded(P, err_ref_ba, B4=None):
+def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
     """The sharded solvers at p=1 on a one-rank NCCL group (what runs on
     one card): ``ba_gmres_sharded_pallas`` and ``ab_gmres_sharded_pallas``
     on P's int8 CT operator in the transposed (``BT_panels``) and forward
@@ -3069,9 +3100,13 @@ def phase_sharded(P, err_ref_ba, B4=None):
     int8 B^T) and the host solve with B^T quantized alike, and its gap to
     the production pair is printed.  ``B4``: P's int4 operator of B; when
     given, also the forms of p=4 and p=8 builds, int8 and int4, shard by
-    shard (:func:`shard_view_checks`).  The group is destroyed at the end
-    of the phase.  Returns the launches of the BA transposed solve, the
-    records and the shard_view records."""
+    shard (:func:`shard_view_checks`).  Then phase ``sharded_solvers`` on
+    the same group and panels (:func:`phase_sharded_solvers`;
+    ``gkb_refs``: the GKB phase's float64 histories; its n=128 part when
+    ``B4`` is given).  The group is destroyed at the end of the phase.
+    Returns the launches of the BA transposed solve, the records, the
+    shard_view records, the sharded_solvers records and the launches of
+    their R=8 in-loop batch."""
     import torch
     import torch.distributed as dist
 
@@ -3194,9 +3229,294 @@ def phase_sharded(P, err_ref_ba, B4=None):
         say("sharded_done", n=n, seconds=time.perf_counter() - t0,
             packing_s=pack_s, panels_mb=dict(
                 A=A_p.nbytes / 1e6, BT=BT_p.nbytes / 1e6, B=B_p.nbytes / 1e6))
-        return ba_t, recs, views
+        solver_recs, batched = phase_sharded_solvers(
+            P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
+            main=B4 is not None)
+        return ba_t, recs, views, solver_recs, batched
     finally:
         dist.destroy_process_group()
+
+
+# The sharded solvers of phase sharded_solvers against their single-chip
+# twins on the same matrices: the GMRES-type solvers (RTP, batched) in the
+# main path's bands (REF_K, REF_RTOL, REF_MIN_RTOL), also to the float64
+# host solve; the GKB solvers over the first GKB_REF_K steps to 1e-3 and
+# their minima to GKB_MIN_RTOL (float32 GKB agrees with float64 over ~6
+# steps only, so no band is set from the late history).
+SHARDED_GKB_BANDS = (GKB_REF_K, 1e-3, GKB_MIN_RTOL)
+# The n=64 part of phase sharded_solvers runs this many steps (n=128:
+# MAXIT): the bands read the first 12 steps and the minimum (k = 6-9).
+SHARDED_N64_STEPS = 50
+NCCL = ("all_reduce", "all_gather", "reduce_scatter", "shift")
+
+
+def nccl_since(mesh, before):
+    """The mesh's collectives since the counts ``before``, by name."""
+    return {c: mesh.calls[c] - before.get(c, 0) for c in NCCL}
+
+
+def held_columns(err, err_ref, label, what, bands):
+    """Every column of a batched history held to the same column of a
+    reference; returns the worst gaps."""
+    gaps = [held_to(err[:, j], err_ref[:, j], f"{label} column {j}", what,
+                    bands) for j in range(err.shape[1])]
+    return max(g[0] for g in gaps), max(g[1] for g in gaps)
+
+
+def sharded_vs_single(label, mesh, run_sh, run_1, want, bands, host=None,
+                      gate=None, maxit=MAXIT):
+    """One sharded solve with the launch counts and the mesh's collectives
+    reset before and read after (the counts checked against ``want``),
+    finite and ``maxit`` steps; its error history held to the single-chip
+    solve's (``run_1``; column by column for a batched one) and, given
+    ``host``, column 0 to the float64 host solve; both timed in turns (5
+    each).  Returns (the record, the sharded result)."""
+    import torch
+
+    calls0 = dict(mesh.calls)
+    reset_counts()
+    with HostSyncs() as syncs:
+        r = run_sh()
+    torch.cuda.synchronize()
+    launched = counts()
+    nccl = nccl_since(mesh, calls0)
+    check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.err_hist).all()
+               and torch.isfinite(r.res_hist).all()),
+          f"{label}: non-finite results")
+    check(bool((r.niters == maxit).all()), f"{label}: niters "
+          f"{r.niters.tolist()}")
+    ref = run_1()
+    err, err_ref = r.err_hist.cpu().numpy(), ref.err_hist.cpu().numpy()
+    check(bool(np.isfinite(err_ref).all()), f"{label}: the single-chip "
+          "solve is not finite")
+    held = held_columns if err.ndim == 2 else held_to
+    hist, at_min = held(err, err_ref, label, "the single-chip solve", bands)
+    rec = dict(label=label, maxit=maxit, launches=launched, nccl_calls=nccl,
+               nccl_calls_per_iter=sum(nccl.values()) / maxit,
+               host_syncs=syncs.count, min_err=np.min(err, axis=0).tolist(),
+               single_chip_min_err=np.min(err_ref, axis=0).tolist(),
+               hist_rel_diff=hist, min_rel_diff=at_min)
+    if host is not None:
+        col0 = err[:, 0] if err.ndim == 2 else err
+        rec["f64_hist_rel_diff"], rec["f64_min_rel_diff"] = held_to(
+            col0, host, label, "the float64 host solve", bands)
+        rec["f64_min_err"] = float(host.min())
+    if gate is not None:
+        check(float(np.max(np.min(err, axis=0))) <= gate, f"{label}: "
+              f"min-over-k errors {rec['min_err']} above the gate {gate}")
+    ms_sh, ms_1 = alternating_ms((run_sh, run_1), 5)
+    its, its1 = (maxit / (float(np.median(v)) / 1e3) for v in (ms_sh, ms_1))
+    rec.update(iters_per_s=its, single_chip_iters_per_s=its1,
+               ratio=its / its1, solve_ms=ms_sh, single_chip_solve_ms=ms_1)
+    say("sharded_solvers", **rec)
+    return rec, r
+
+
+def gram_check(G, lam):
+    """The float32 Gram solves of AB-RTP, one per step k (the leading k x k
+    block plus lam I, padded as ``projected_gram_tikhonov_solve`` pads it):
+    how many LU solves report a failure (``info``), the smallest
+    eigenvalue of a step's block in float64 (the padding set above every
+    eigenvalue, so that the minimum is the block's) and the step where it
+    is least, and the Gram's rounding ``eps ||G||``."""
+    import torch
+
+    maxit = G.shape[0]
+    ks = torch.arange(1, maxit + 1, device=G.device)
+    active = torch.arange(maxit, device=G.device)[None, :] < ks[:, None]
+    mask = active[:, :, None] & active[:, None, :]
+    eye = torch.eye(maxit, dtype=G.dtype, device=G.device)
+    norm = float(torch.linalg.matrix_norm(G.double(), ord=2))
+
+    def padded(pad):
+        return torch.where(mask, G, torch.zeros((), dtype=G.dtype,
+                                                device=G.device)) + \
+            lam * eye + pad * torch.diag_embed((~active).to(G.dtype))
+
+    _, info = torch.linalg.solve_ex(padded(1.0), torch.ones(
+        (maxit, maxit, 1), dtype=G.dtype, device=G.device))
+    eig = torch.linalg.eigvalsh(padded(2 * norm + 1).double()).min(
+        dim=1).values
+    return dict(lu_failures=int((info != 0).sum()),
+                min_eigenvalue=float(eig.min()),
+                min_eigenvalue_step=int(eig.argmin()) + 1,
+                condition=norm / float(eig.min()),
+                rounding=float(torch.finfo(G.dtype).eps) * norm, lam=lam)
+
+
+def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
+                          main):
+    """The rest of the 1-D tier at p=1 on the group and the panels of phase
+    ``sharded`` (nothing rebuilt but the adjoint pair).  ``main`` (n=128):
+    BA- and AB-RTP, ``lsqr`` and ``hybrid_lsqr`` on the transposed layout,
+    ``lsqr`` on ``build_panels_with_adjoint(A, 1, int8)``, the serving
+    batch ``ba_gmres_sharded_batched`` (R=8 with the serving noise seeds,
+    in-loop and deferred; R=16 in two chunks) and
+    ``ab_gmres_sharded_batched`` (R=8 deferred), the NCCL calls of an R=1
+    batched solve, and the float32 Gram solves of both AB-RTPs; otherwise
+    (n=64) ``lsmr`` and ``hybrid_lsmr``, ``lsqr`` on
+    ``ComposedPanels(A, BT, "ba")`` against the single-chip ``lsqr`` on the
+    product operator, and the forward layout (``B_panels``) for BA-RTP and
+    the R=8 deferred batch, each at SHARDED_N64_STEPS steps.  Each through :func:`sharded_vs_single`, its
+    launches worked out from the code; ``host_ref``: phase ``sharded``'s
+    float64 GMRES histories by (kind, forward); ``gkb_refs``: the GKB
+    phase's float64 histories by solver.  Returns (the records, the
+    launches of the in-loop R=8 batch at n=128)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.linear_operator import ProductOperator
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import _gather_for
+    from hybrid_gmres_tpu_torch.parallel import (
+        ComposedPanels, ab_gmres_rtp_sharded, ab_gmres_sharded_batched,
+        ba_gmres_rtp_sharded, ba_gmres_sharded_batched,
+        build_panels_with_adjoint, hybrid_lsmr_sharded, hybrid_lsqr_sharded,
+        lsmr_sharded, lsqr_sharded)
+    from hybrid_gmres_tpu_torch.parallel.panels import shard_view
+    from hybrid_gmres_tpu_torch.problems.ct import BLOCK_A, N_BUCKETS
+    from hybrid_gmres_tpu_torch.solvers.batched import (ab_gmres_batched,
+                                                        ba_gmres_batched)
+    from hybrid_gmres_tpu_torch.utils.device import full_float32_matmul
+
+    n, t0 = P.n, time.perf_counter()
+    steps = MAXIT if main else SHARDED_N64_STEPS
+    recs, out = [], {}
+    gmres_kw = dict(tol=0.0, maxit=steps, lam=LAM)
+    gkb = dict(lsqr=lsqr_sharded, hybrid_lsqr=hybrid_lsqr_sharded,
+               lsmr=lsmr_sharded, hybrid_lsmr=hybrid_lsmr_sharded)
+    rtp = dict(ba_gmres_rtp=ba_gmres_rtp_sharded,
+               ab_gmres_rtp=ab_gmres_rtp_sharded)
+    batched = dict(ba=(ba_gmres_sharded_batched, ba_gmres_batched),
+                   ab=(ab_gmres_sharded_batched, ab_gmres_batched))
+
+    def rtp_case(name, forward):
+        label = f"n={n} {name}_sharded p=1 " + ("forward" if forward
+                                                 else "transposed")
+        k1r, k3r = sharded_launches("ba", forward, steps)
+        host = host_reference_rtp(P, name, RTP_REF_STEPS,
+                                  transposed=not forward)
+        rec, r = sharded_vs_single(
+            label, mesh,
+            lambda: rtp[name](A_p, None if forward else BT_p, P.b, P.x_true,
+                              mesh=mesh, B_panels=B_p if forward else None,
+                              **gmres_kw),
+            lambda: rtp_solver(name)(P.A_op, P.B_op if forward else BT_op.T,
+                                     P.b, P.x_true, **gmres_kw),
+            (0, 0, 0, 0, k1r, k3r, 0, 0), None, host=host, maxit=steps)
+        recs.append(rec)
+        return r
+
+    def batched_case(kind, b, defer, forward=False):
+        R = b.shape[1]
+        chunks = -(-R // 8)
+        label = (f"n={n} {kind}_gmres_sharded_batched p=1 R={R} "
+                 + ("deferred" if defer else "in-loop")
+                 + (" forward" if forward else ""))
+        sh, single = batched[kind]
+        if forward:
+            k2r, k4r = 2 * steps + 1, 0
+        else:
+            k2r, k4r = steps, steps + (kind == "ba")
+        rec, r = sharded_vs_single(
+            label, mesh,
+            lambda: sh(A_p, None if forward else BT_p, b, P.x_true,
+                       mesh=mesh, B_panels=B_p if forward else None,
+                       defer_histories=defer, **gmres_kw),
+            lambda: single(P.A_op, P.B_op if forward else BT_op.T, b,
+                           P.x_true, defer_histories=defer, **gmres_kw),
+            (0, 0, 0, 0, 0, 0, chunks * k2r, chunks * k4r), None,
+            host=host_ref[kind, forward], gate=SERVING_GATES[n]
+            if kind == "ba" else None, maxit=steps)
+        recs.append(rec)
+        return rec
+
+    def gkb_case(name, A, A_single, rhs, want, x_true=P.x_true, host=None,
+                 tag=""):
+        label = f"n={n} {name}_sharded p=1{tag}"
+        kw = dict(tol=0.0, maxit=steps)
+        if "hybrid" in name:
+            kw["lam"] = LAM
+        fn, _ = gkb_solver(name)
+        rec, r = sharded_vs_single(
+            label, mesh, lambda: gkb[name](A, rhs, x_true, mesh=mesh, **kw),
+            lambda: fn(A_single, rhs, x_true, **kw),
+            (0, 0, 0, 0) + want + (0, 0), SHARDED_GKB_BANDS, host=host,
+            maxit=steps)
+        recs.append(rec)
+
+    if main:
+        for name in RTP_SOLVERS:
+            r = rtp_case(name, False)
+            if name == "ab_gmres_rtp":
+                # the Gram solves the port runs in float32: of the sharded
+                # solve (its images, reduced over the mesh) and of the
+                # single-chip one (A Q of its basis), as the solvers form
+                # them
+                r1 = rtp_solver(name)(P.A_op, BT_op.T, P.b, P.x_true,
+                                      **gmres_kw)
+                with full_float32_matmul():
+                    G_sh = mesh.all_reduce(r.IMG.T @ r.IMG)
+                    AQ = P.A_op.matmat(r1.Q[:, :steps])
+                    G_1 = AQ.T @ AQ
+                out["ab_rtp_gram"] = dict(sharded=gram_check(G_sh, LAM),
+                                          single_chip=gram_check(G_1, LAM))
+                say("sharded_solvers_gram", n=n, **out["ab_rtp_gram"])
+                del AQ, G_1, G_sh, r1
+        for name in ("lsqr", "hybrid_lsqr"):
+            gkb_case(name, A_p, P.A_op, P.b, gkb_launches(name, steps),
+                     host=gkb_refs.get(name))
+        t1 = time.perf_counter()
+        pair = build_panels_with_adjoint(
+            P.A_csr, 1, block=BLOCK_A, dtype=np.int8, n_buckets=N_BUCKETS)
+        out["adjoint_pair_build_s"] = time.perf_counter() - t1
+        pair = shard_view(pair, 0, mesh.device)
+        same_forms(pair.A, P.A_op, f"n={n} build_panels_with_adjoint A")
+        out["adjoint_pair_mb"] = pair.nbytes / 1e6
+        gkb_case("lsqr", pair, P.A_op, P.b,
+                 (sum(gkb_launches("lsqr", steps)), 0),
+                 host=gkb_refs.get("lsqr"), tag=" PanelsWithAdjoint int8")
+        del pair
+        b_host = noisy_sinograms(P, range(16))
+        b16 = torch.as_tensor(b_host, device=P.device)
+        b8 = b16[:, :8].contiguous()
+        # the gather each shard call takes (ops/spmv_cuda.py:_gather_for):
+        # the window comes in the basis layout, K4 reads the scaled basis
+        probe = b8.T.contiguous().T
+        out["gathers"] = dict(
+            k2r_A=_gather_for(A_p.shards[0].fwd_rows, probe),
+            k4r_BT=_gather_for(BT_p.shards[0].adj_rows, probe, scaled=True))
+        in_loop = batched_case("ba", b8, False)
+        batched_case("ba", b8, True)
+        batched_case("ba", b16, True)
+        batched_case("ab", b8, True)
+        # the collectives of an R=1 solve: the batched ones' count
+        calls0 = dict(mesh.calls)
+        ba_gmres_sharded_batched(A_p, BT_p, b8[:, :1], P.x_true, mesh=mesh,
+                                 **gmres_kw)
+        torch.cuda.synchronize()
+        one = nccl_since(mesh, calls0)
+        check(one == in_loop["nccl_calls"], f"n={n}: the NCCL calls of the "
+              f"R=8 batch {in_loop['nccl_calls']} differ from R=1's {one}")
+        out["nccl_calls_R1"] = one
+        out["batched_launches"] = in_loop["launches"]
+    else:
+        for name in ("lsmr", "hybrid_lsmr"):
+            gkb_case(name, A_p, P.A_op, P.b, gkb_launches(name, steps),
+                     host=gkb_refs.get(name))
+        # M = B A with B through K3 on B^T's shard (rhs d = B b): each of
+        # M's products one K1r and one K3r
+        d = BT_op.rmatvec(P.b)
+        gkb_case("lsqr", ComposedPanels(A_p, BT_p, "ba"),
+                 ProductOperator(BT_op.T, P.A_op), d,
+                 (2 * (steps + 1), 2 * (steps + 1)), tag=" ComposedPanels ba")
+        rtp_case("ba_gmres_rtp", True)
+        batched_case("ba", torch.as_tensor(noisy_sinograms(P, range(8)),
+                                           device=P.device), True,
+                     forward=True)
+    out["seconds"] = time.perf_counter() - t0
+    say("sharded_solvers_done", n=n, **out)
+    return recs, out.get("batched_launches")
 
 
 def same_forms(view, op, label):
@@ -3213,33 +3533,51 @@ def same_forms(view, op, label):
     check(torch.equal(sh.row_scale, op.fwd_scale), f"{label}: row scales")
 
 
-def shard_view_checks(P, B4):
+def shard_view_checks(P, B4, R=8):
     """The forms of p=4 and p=8 builds of B (int8, and int4 as ``B4``
     holds it), one shard at a time on the card through ``shard_view`` and
     ``host_window_x``: each shard's K1 and K3 against their plain versions,
     the concatenated K1 outputs against the single-chip ``matvec`` and the
-    scattered K3 partials summed against ``rmatvec``.  B rather than A:
+    scattered K3 partials summed against ``rmatvec``; the same with the
+    multi-RHS primitives at ``R`` columns in the batched solvers' layout
+    (``local_matmat``, K2; ``local_rmatmat_window``, K4): against their
+    plain versions, column j bit-equal to ``local_matvec`` /
+    ``local_rmatvec_window`` on column j, concatenated against ``matmat``
+    and the partials placed by ``scatter_window_to_full_mat`` and summed
+    against ``rmatmat``; each shard's K2r/K4r call timed (µs, CUDA events)
+    beside the single-chip K2r/K4r on the whole matrix.  B rather than A:
     the same kernels on 11.8M instead of 26.4M entries, half the host
     packing.  Returns a record per build."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        row_matvec_plain, row_rmatvec_plain)
+        _gather_for, row_matmat_plain, row_matvec_plain, row_rmatmat_plain,
+        row_rmatvec_plain)
     from hybrid_gmres_tpu_torch.parallel import shard_bucketed_panels
     from hybrid_gmres_tpu_torch.parallel.panels import (
-        host_window_x, local_matvec, local_rmatvec_window,
-        scatter_window_to_full, shard_view)
+        host_window_x, local_matmat, local_matvec, local_rmatmat_window,
+        local_rmatvec_window, scatter_window_to_full,
+        scatter_window_to_full_mat, shard_view)
     from hybrid_gmres_tpu_torch.problems.ct import BLOCK_B, N_BUCKETS
 
     rng = np.random.default_rng(8)
     m, n = P.B_op.shape
     x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
-                        device="cuda")
+                        device=P.device)
     u = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
-                        device="cuda")
+                        device=P.device)
+    # (space, R) as the transposed views of (R, space) tensors: the layout
+    # of the batched solvers' basis columns and of gather_window_mat
+    X = torch.as_tensor(rng.standard_normal((R, n)), dtype=torch.float32,
+                        device=P.device).T
+    U = torch.as_tensor(rng.standard_normal((R, m)), dtype=torch.float32,
+                        device=P.device).T
     out = []
     for dtype, op in (("int8", P.B_op), ("int4", B4)):
         y_ref, z_ref = op.matvec(x), op.rmatvec(u)
+        Y_ref, Z_ref = op.matmat(X), op.rmatmat(U)
+        single_us = dict(k2r=time_ms(lambda: op.matmat(X), reps=20) * 1e3,
+                         k4r=time_ms(lambda: op.rmatmat(U), reps=20) * 1e3)
         for p in (4, 8):
             t0 = time.perf_counter()
             sp_ = shard_bucketed_panels(
@@ -3247,10 +3585,14 @@ def shard_view_checks(P, B4):
                 dtype=np.int8 if dtype == "int8" else "int4")
             build_s = time.perf_counter() - t0
             mloc = m // p
-            ys, z = [], torch.zeros(n, device="cuda")
-            worst = 0.0
+            ys, z, Ys = [], torch.zeros(n, device=P.device), []
+            Z = torch.zeros((n, R), device=P.device)
+            worst = worst_mm = 0.0
+            columns_equal = True
+            shard_us = dict(k2r=[], k4r=[])
+            gathers = dict(k2r=[], k4r=[])
             for i in range(p):
-                view = shard_view(sp_, i, "cuda")
+                view = shard_view(sp_, i, P.device)
                 shard = view.shards[0]
                 xw = host_window_x(sp_, i, x)
                 ui = u[i * mloc:(i + 1) * mloc]
@@ -3263,19 +3605,56 @@ def shard_view_checks(P, B4):
                         shard.adj_rows, ui, shard.row_scale)))
                 ys.append(yi)
                 z += scatter_window_to_full(view, zi)
+                Xw = host_window_x(sp_, i, X).T.contiguous().T
+                Ui = U[i * mloc:(i + 1) * mloc]
+                Yi = local_matmat(view, Xw)
+                Zi = local_rmatmat_window(view, Ui)
+                worst_mm = max(
+                    worst_mm, rel_err(Yi, row_matmat_plain(
+                        shard.fwd_rows, Xw, shard.row_scale)),
+                    rel_err(Zi, row_rmatmat_plain(
+                        shard.adj_rows, Ui, shard.row_scale)))
+                for j in range(R):
+                    columns_equal &= bool(
+                        torch.equal(Yi[:, j], local_matvec(
+                            view, Xw[:, j].contiguous()))
+                        and torch.equal(Zi[:, j], local_rmatvec_window(
+                            view, Ui[:, j].contiguous())))
+                Ys.append(Yi)
+                Z += scatter_window_to_full_mat(view, Zi)
+                gathers["k2r"].append(_gather_for(shard.fwd_rows, Xw))
+                gathers["k4r"].append(_gather_for(shard.adj_rows, Ui,
+                                                  scaled=True))
+                shard_us["k2r"].append(time_ms(
+                    lambda: local_matmat(view, Xw), reps=20) * 1e3)
+                shard_us["k4r"].append(time_ms(
+                    lambda: local_rmatmat_window(view, Ui), reps=20) * 1e3)
                 del view, shard
             torch.cuda.synchronize()
             label = f"n={P.n} B {dtype} p={p} shard_view"
             check(worst <= KERNEL_RTOL, f"{label}: a shard's kernel vs "
                   f"plain {worst:.3e}")
+            check(worst_mm <= KERNEL_RTOL, f"{label}: a shard's K2r/K4r vs "
+                  f"plain {worst_mm:.3e}")
+            check(columns_equal, f"{label}: a column of K2r/K4r differs "
+                  "from K1r/K3r on that column")
             ey, ez = rel_err(torch.cat(ys), y_ref), rel_err(z, z_ref)
             check(max(ey, ez) <= KERNEL_RTOL, f"{label}: shards against the "
                   f"single-chip products {ey:.3e} (A x), {ez:.3e} (A^T u)")
+            eY, eZ = rel_err(torch.cat(Ys), Y_ref), rel_err(Z, Z_ref)
+            check(max(eY, eZ) <= KERNEL_RTOL, f"{label}: R={R} shards "
+                  f"against the single-chip products {eY:.3e} (A X), "
+                  f"{eZ:.3e} (A^T U)")
             rec = dict(n=P.n, dtype=dtype, p=p, windowed=sp_.windowed,
                        shifts=list(sp_.shifts), build_s=build_s,
                        forms_mb=sp_.nbytes / 1e6,
                        shard_vs_plain_max_rel=worst, concat_vs_matvec=ey,
-                       scatter_vs_rmatvec=ez)
+                       scatter_vs_rmatvec=ez, R=R,
+                       shard_mm_vs_plain_max_rel=worst_mm,
+                       columns_bit_equal=columns_equal,
+                       concat_vs_matmat=eY, scatter_vs_rmatmat=eZ,
+                       shard_us=shard_us, single_chip_us=single_us,
+                       gathers=gathers)
             say("shard_view", **rec)
             out.append(rec)
     return out
@@ -3323,6 +3702,18 @@ def main():
     import torch
 
     phase_build()
+    if "--sharded" in sys.argv[1:]:      # a short call: the sharded phases
+        for n in (64, 128):
+            P = make_problem(n)
+            ref0 = host_reference(P.prob, P.ray_perm, P.pix_perm, P.b_host)
+            refs = {name: host_reference_gkb(P, name, P.b_host)
+                    for name in (GKB_SINGLE if n == 64 else ("lsqr",))}
+            phase_sharded(P, ref0, refs,
+                          int4_operators(P).B_op if n == 128 else None)
+            del P
+            torch.cuda.empty_cache()
+        say("stopped", after="sharded")
+        return
     P = make_problem(64, adjoint=True)
     k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
         phase_ct_kernels(P)
@@ -3361,7 +3752,8 @@ def main():
     del P4
     say("int4_done", n=64, seconds=time.perf_counter() - t0)
     with PeakMemory("n=64 sharded"):
-        sharded_launches_64, sharded_64, _ = phase_sharded(P, ref0)
+        sharded_launches_64, sharded_64, _, solvers_64, _ = phase_sharded(
+            P, ref0, {k: v[2] for k, v in gkb.items()})
     host = (P.prob, P.ray_perm, P.pix_perm)
     del P
     torch.cuda.empty_cache()
@@ -3387,12 +3779,14 @@ def main():
     k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
     say("int4_done", n=128, seconds=time.perf_counter() - t0)
     with PeakMemory("n=128 sharded"):
-        _, sharded_128, views = phase_sharded(P, ref0, P4.B_op)
+        _, sharded_128, views, solvers_128, batched_128 = phase_sharded(
+            P, ref0, {k: v[2] for k, v in gkb.items()}, P4.B_op)
     del P4
     say("memory_peaks", card=card, **MEMORY)
     say("phantom2d_gpu_launches", launches=phantom_launches)
     say("sharded_summary", card=card, runs=sharded_64 + sharded_128,
         shard_view=views)
+    say("sharded_solvers_summary", card=card, runs=solvers_64 + solvers_128)
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
@@ -3405,12 +3799,18 @@ def main():
                       sharded_launches=sharded_launches_64[4]),
         kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
                       serving_launches[6], k2r_64,
-                      k2r_128 + lmm_64 + lmm_128),
+                      k2r_128 + lmm_64 + lmm_128,
+                      sharded_launches=batched_128[6],
+                      sharded_path="ba_gmres_sharded_batched n=128 R=8 "
+                      "in-loop (parallel/panels.py:local_matmat)"),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
                       lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128,
                       sharded_launches=sharded_launches_64[5]),
         kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",
-                      lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128),
+                      lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128,
+                      sharded_launches=batched_128[7],
+                      sharded_path="ba_gmres_sharded_batched n=128 R=8 "
+                      "in-loop (parallel/panels.py:local_rmatmat_window)"),
         # the int4 variants (nibble-packed forms), each with the launches
         # of its n=64 int4 path: the single solve (K1), lsqr (K3), the
         # serving batch (K2), lsqr_batched (K4)

@@ -1,11 +1,12 @@
-"""The 1-D sharded GMRES path on ``torch.distributed`` (PyTorch port of
-``hybrid_gmres_tpu/parallel``, items 14.1-14.4 of ROADMAP).
+"""The 1-D sharded tier on ``torch.distributed`` (PyTorch port of
+``hybrid_gmres_tpu/parallel``, items 14.1-14.7 of ROADMAP): the sharded
+BA/AB-GMRES, RTP, GKB (LSQR/LSMR and hybrids) and multi-RHS GMRES solvers.
 
 SPMD, one process per card: build a :class:`~mesh.Mesh` (NCCL on the card
 by default, gloo with ``device="cpu"``) after the process group exists
 (:func:`initialize_multihost` under torchrun), then call the solvers on
-every rank.  The sharded GKB, RTP, batched and 2-D solvers of the JAX
-package are still to be ported (ROADMAP 14.5-14.10).
+every rank.  Still to be ported: the 2-D tier (ROADMAP 14.8) and the
+multi-chip dry run (14.10).
 """
 
 from hybrid_gmres_tpu_torch.parallel.mesh import (
@@ -16,7 +17,10 @@ from hybrid_gmres_tpu_torch.parallel.mesh import (
 )
 from hybrid_gmres_tpu_torch.parallel.multihost import initialize_multihost
 from hybrid_gmres_tpu_torch.parallel.panels import (
+    ComposedPanels,
+    PanelsWithAdjoint,
     ShardedPanels,
+    build_panels_with_adjoint,
     comms_bytes_per_iteration,
     shard_bucketed_panels,
 )
@@ -26,15 +30,29 @@ from hybrid_gmres_tpu_torch.parallel.sharded import (
     sharded_ab_matvec,
     sharded_ba_matvec,
 )
+from hybrid_gmres_tpu_torch.parallel.sharded_batched import (
+    ab_gmres_sharded_batched,
+    ba_gmres_sharded_batched,
+)
 from hybrid_gmres_tpu_torch.parallel.sharded_full import (
     ab_gmres_sharded_basis,
     ba_gmres_sharded_basis,
+)
+from hybrid_gmres_tpu_torch.parallel.sharded_gkb import (
+    hybrid_lsmr_sharded,
+    hybrid_lsqr_sharded,
+    lsmr_sharded,
+    lsqr_sharded,
 )
 from hybrid_gmres_tpu_torch.parallel.sharded_rows import (
     ab_gmres_sharded_pallas,
     ab_gmres_sharded_pallas_restarted,
     ba_gmres_sharded_pallas,
     ba_gmres_sharded_pallas_restarted,
+)
+from hybrid_gmres_tpu_torch.parallel.sharded_rtp import (
+    ab_gmres_rtp_sharded,
+    ba_gmres_rtp_sharded,
 )
 
 __all__ = [
@@ -56,4 +74,15 @@ __all__ = [
     "ab_gmres_sharded_pallas",
     "ba_gmres_sharded_pallas_restarted",
     "ab_gmres_sharded_pallas_restarted",
+    "PanelsWithAdjoint",
+    "build_panels_with_adjoint",
+    "ComposedPanels",
+    "ba_gmres_rtp_sharded",
+    "ab_gmres_rtp_sharded",
+    "lsqr_sharded",
+    "hybrid_lsqr_sharded",
+    "lsmr_sharded",
+    "hybrid_lsmr_sharded",
+    "ba_gmres_sharded_batched",
+    "ab_gmres_sharded_batched",
 ]

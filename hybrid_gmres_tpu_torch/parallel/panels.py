@@ -26,10 +26,14 @@ shard's forms have their own lanes.  :func:`shard_bucketed_panels` builds
 all shards on the host; a rank puts only its own on its device
 (:func:`shard_view`).
 
-``PanelsWithAdjoint``, ``build_panels_with_adjoint``, ``ComposedPanels`` and
-the multi-RHS primitives (``gather_window_mat``, ``local_matmat``,
-``local_rmatmat_window``, ``scatter_window_to_full_mat``) come with the
-sharded GKB and batched solvers (ROADMAP).
+The multi-RHS primitives (:func:`gather_window_mat`, :func:`local_matmat`,
+:func:`local_rmatmat_window`, :func:`scatter_window_to_full_mat`) run the
+redesigned K2 (``row_matmat``) and K4 (``row_rmatmat``) on the same forms,
+with the same exchange carrying R times the payload.  Two more operator
+shapes serve the sharded GKB solvers: :class:`PanelsWithAdjoint` (A and a
+forward-layout panel of its transpose, so ``A^T u`` runs K1 after a gather
+instead of K3 and a reduce_scatter) and :class:`ComposedPanels` (``A B`` or
+``B A`` from the panels of A and of B^T, optionally B's own).
 """
 
 from __future__ import annotations
@@ -48,7 +52,9 @@ from hybrid_gmres_tpu_torch.ops.sparse import (
 )
 from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
     _row_quantize_csr,
+    row_matmat,
     row_matvec,
+    row_rmatmat,
     row_rmatvec,
 )
 
@@ -138,6 +144,21 @@ class ShardedPanels:
     @property
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.shards)
+
+    @property
+    def quantized(self) -> bool:
+        """Held with per-row scales (int8/int4 from a quantizing build)."""
+        return self.shards[0].row_scale is not None
+
+    @property
+    def storage_dtype(self):
+        """The stored values' dtype (int8 for int4 nibble pairs)."""
+        return self.shards[0].fwd_rows.dtype
+
+    def to(self, device) -> "ShardedPanels":
+        """The held shards on ``device`` (a shard already there as it is)."""
+        return dataclasses.replace(
+            self, shards=tuple(s.to(device) for s in self.shards))
 
     def local(self, index: int, device=None) -> PanelShard:
         """Shard ``index`` (of the ``p``), on ``device`` when given."""
@@ -303,20 +324,25 @@ def shard_bucketed_panels(csr, p: int, block=(8, 128), dtype=np.float32,
 # mesh of the solve.
 # ---------------------------------------------------------------------------
 
-def _exchange(sp: ShardedPanels, x_loc, mesh, comm_dtype):
-    """Windowed panels: ``L`` shifts and a slice of the received stack
-    (``L * n/p`` values on the wire) -> this shard's window, flat; full
-    panels: one all_gather ((p-1) * n/p values) -> all n.  ``comm_dtype``:
-    the slab crosses the wire in this type (a cast before, float32 after)."""
-    x_loc = x_loc.to(torch.float32)
-    wire = x_loc if comm_dtype is None else x_loc.to(comm_dtype)
+def _exchange(sp: ShardedPanels, rows, mesh, comm_dtype):
+    """This shard's window of the n-sharded columns whose slabs are the
+    rows of ``rows`` (R, n/p), as (R, ``win_len``) float32.  Windowed
+    panels: ``L`` shifts and a slice of the received stack (``L * n/p``
+    values a column on the wire); full panels: one all_gather ((p-1) * n/p
+    values a column) -> all n.  ``comm_dtype``: the slabs cross the wire in
+    this type (a cast before, float32 after)."""
+    R = rows.shape[0]
+    rows = rows.to(torch.float32)
+    wire = rows if comm_dtype is None else rows.to(comm_dtype)
     if not sp.windowed:
-        return mesh.all_gather(wire).to(torch.float32)
-    dmin, L = sp.shifts
-    stack = torch.stack([mesh.shift(wire, dmin + idx) for idx in range(L)])
-    start_rel = sp.shards[0].win_start - mesh.index - dmin
-    return stack[start_rel:start_rel + sp.win_slabs].reshape(-1).to(
-        torch.float32)
+        got = mesh.all_gather(wire).reshape(sp.p, R, -1)
+    else:
+        dmin, L = sp.shifts
+        start_rel = sp.shards[0].win_start - mesh.index - dmin
+        got = torch.stack([mesh.shift(wire, dmin + idx)
+                           for idx in range(L)])[start_rel:
+                                                 start_rel + sp.win_slabs]
+    return got.transpose(0, 1).reshape(R, -1).to(torch.float32)
 
 
 def gather_window(sp: ShardedPanels, x_loc, mesh, comm_dtype=None):
@@ -324,7 +350,18 @@ def gather_window(sp: ShardedPanels, x_loc, mesh, comm_dtype=None):
     n-sharded x (one slab of ``n/p`` per rank).  ``comm_dtype`` (e.g.
     ``torch.bfloat16``): the exchanged slabs are rounded to it, which moves
     the result by ~4e-3 relative (hold it to a band, not to bits)."""
-    return _exchange(sp, x_loc, mesh, comm_dtype)
+    return _exchange(sp, x_loc[None], mesh, comm_dtype)[0]
+
+
+def gather_window_mat(sp: ShardedPanels, X_loc, mesh, comm_dtype=None):
+    """Multi-RHS twin of :func:`gather_window`: this shard's window of the
+    row-sharded X (n/p, R) as (``win_len``, R) float32, from the same
+    shifts (or all_gather) with R times the payload.  The slabs travel as
+    contiguous (R, n/p) rows and the window comes back as the transposed
+    view of a contiguous (R, ``win_len``) tensor: the layout of the batched
+    solvers' basis columns, which the redesigned K2 reads fastest
+    (``ops/spmv_cuda.py``)."""
+    return _exchange(sp, X_loc.T, mesh, comm_dtype).T
 
 
 def local_matvec(sp: ShardedPanels, x_win):
@@ -346,19 +383,54 @@ def local_rmatvec_window(sp: ShardedPanels, u_loc):
 def scatter_window_to_full(sp: ShardedPanels, y_win):
     """A window-relative partial placed in the global (n,) frame (zero pad
     and roll: windows may start negative or wrap past n)."""
+    return scatter_window_to_full_mat(sp, y_win[:, None])[:, 0]
+
+
+def local_matmat(sp: ShardedPanels, X_win):
+    """``A_loc X_win`` (m/p, R) through the redesigned K2 on this shard's
+    forward form, the row scale in its epilogue: one read of the form per
+    tile of 8 columns, column j bit-equal to :func:`local_matvec` on
+    column j."""
+    shard = sp.shards[0]
+    return row_matmat(shard.fwd_rows, X_win, shard.row_scale)
+
+
+def local_rmatmat_window(sp: ShardedPanels, U_loc):
+    """The window-relative partial ``(A_loc)^T U_loc`` (``win_len``, R)
+    through the redesigned K4 on the form of this shard's transpose, the
+    row scale gathered beside ``U``: column j bit-equal to
+    :func:`local_rmatvec_window` on column j."""
+    shard = sp.shards[0]
+    return row_rmatmat(shard.adj_rows, U_loc, shard.row_scale)
+
+
+def scatter_window_to_full_mat(sp: ShardedPanels, Y_win):
+    """A window-relative multi-RHS partial placed in the global (n, R)
+    frame: zero pad, then roll on axis 0 (a window may start at a negative
+    slab or wrap past n)."""
     n = sp.shape[1]
     if not sp.windowed:
-        return y_win[:n]
-    nloc = n // sp.p
-    full = torch.zeros(n, dtype=y_win.dtype, device=y_win.device)
-    full[:y_win.shape[0]] = y_win
-    return torch.roll(full, sp.shards[0].win_start * nloc)
+        return Y_win[:n]
+    full = Y_win.new_zeros((n, Y_win.shape[1]))
+    full[:Y_win.shape[0]] = Y_win
+    return torch.roll(full, sp.shards[0].win_start * (n // sp.p), dims=0)
 
 
-def shard_view(sp: ShardedPanels, i: int, device=None) -> ShardedPanels:
+def shard_view(sp, i: int, device=None):
     """The panels with shard ``i`` alone (on ``device`` when given), for the
     shard-local primitives: what a rank hands to a solver, and how the
-    window-relative forms of a p > 1 build are driven on one card."""
+    window-relative forms of a p > 1 build are driven on one card.  A
+    :class:`PanelsWithAdjoint` or :class:`ComposedPanels` gives the same
+    object over views of its panels.  A shard already on ``device`` is used
+    as it is."""
+    if isinstance(sp, PanelsWithAdjoint):
+        return dataclasses.replace(sp, A=shard_view(sp.A, i, device),
+                                   AT=shard_view(sp.AT, i, device))
+    if isinstance(sp, ComposedPanels):
+        return dataclasses.replace(
+            sp, A=shard_view(sp.A, i, device),
+            BT=shard_view(sp.BT, i, device),
+            B=None if sp.B is None else shard_view(sp.B, i, device))
     return dataclasses.replace(sp, shards=(sp.local(i, device),), first=i)
 
 
@@ -422,3 +494,212 @@ def comms_bytes_per_iteration(A_panels: ShardedPanels,
         "scalar_bytes": scalars,
         "total_bytes": gather + b_collective + cgs2 + scalars,
     }
+
+
+# ---------------------------------------------------------------------------
+# The GKB family's other operator shapes.
+# ---------------------------------------------------------------------------
+
+def _require_exact_values(name: str, sp: ShardedPanels) -> None:
+    """Forward-layout adjoint or back panels must hold EXACT (or
+    elementwise-rounded bf16) values: per-row quantization of A^T is
+    per-column quantization of A, so an int8/int4 panel of the transpose
+    would break the exact adjoint pair ``<A v, u> == <v, A^T u>`` that the
+    GKB recurrences rely on (``lsqr_solver.m:22-28``)."""
+    if sp.quantized or sp.packed4:
+        raise ValueError(
+            f"{name} panels are quantized (int8/int4): forward-layout "
+            "adjoint panels must be f32/bf16 — per-row scales of the "
+            "transpose are per-column scales of the operator, which breaks "
+            "the exact adjoint pair; use the transposed-kernel layout for "
+            "quantized operators")
+
+
+@dataclass
+class PanelsWithAdjoint:
+    """``A`` panels plus a dedicated forward-layout panel of ``A^T``.
+
+    By default the sharded GKB solvers apply ``A^T`` through K3 on the form
+    of the transpose of A's own shard and a reduce_scatter.  With the pair
+    ``PanelsWithAdjoint(A, AT)`` (``AT = shard_bucketed_panels(A_csr.T,
+    p)``) ``rmatvec`` runs K1 on the AT shard's forward form after a gather
+    of the m-sharded ``u`` (windowed or all_gather) and needs no
+    reduction, the trade the GMRES solvers' ``B_panels`` make.  Both panels
+    hold f32/bf16 values of one dtype, or (``build_panels_with_adjoint``)
+    int8 A with one quantization ``A ~= diag(s) Q`` and AT holding the raw
+    ``Q^T`` without scales: ``A^T u = Q^T (s u)`` stays the exact adjoint
+    of ``A x = s (Q x)``."""
+
+    A: ShardedPanels
+    AT: ShardedPanels
+
+    def __post_init__(self):
+        A, AT = self.A, self.AT
+        m, n = A.shape
+        if AT.shape != (n, m):
+            raise ValueError(
+                f"AT panels must cover A^T as (n, m)={(n, m)}; got "
+                f"{AT.shape}")
+        if AT.p != A.p:
+            raise ValueError(f"AT panels built for p={AT.p}, A has {A.p}")
+        if A.quantized and not A.packed4:
+            if AT.quantized or AT.packed4 or \
+                    AT.storage_dtype != torch.int8:
+                raise ValueError(
+                    "int8 A panels need a shared-quantization AT panel "
+                    "(raw int8 Q^T, no scales) — build the pair with "
+                    "build_panels_with_adjoint")
+        else:
+            _require_exact_values("AT", AT)
+            _require_exact_values("A", A)
+            if A.storage_dtype != AT.storage_dtype:
+                raise ValueError(
+                    f"A/AT storage dtypes differ ({A.storage_dtype} vs "
+                    f"{AT.storage_dtype}): a bf16-rounded panel paired with "
+                    "an f32 transpose is not an exact adjoint pair")
+
+    @property
+    def shape(self):
+        return self.A.shape
+
+    @property
+    def p(self):
+        return self.A.p
+
+    @property
+    def fro_sq(self):
+        return self.A.fro_sq
+
+    @property
+    def nbytes(self) -> int:
+        return self.A.nbytes + self.AT.nbytes
+
+    def to(self, device) -> "PanelsWithAdjoint":
+        return dataclasses.replace(self, A=self.A.to(device),
+                                   AT=self.AT.to(device))
+
+
+def build_panels_with_adjoint(csr, p: int, block=(8, 128),
+                              block_T=(8, 128), dtype=np.float32,
+                              n_buckets: int = 4, row_group: int = 8,
+                              window: bool = True) -> PanelsWithAdjoint:
+    """An exact-adjoint (A, A^T) pair of forward panels, int8 included.
+
+    f32/bf16: both panels hold elementwise(-rounded) values.  int8: A is
+    quantized once (``A ~= diag(s) Q``); the AT panel holds the raw integer
+    ``Q^T`` with no scales of its own, and the GKB ``rmatvec`` scales the
+    m-sharded input first (``A^T u = Q^T (s u)``), the pair K3 realizes,
+    now through K1.  int4 raises (no nibble packing of the transpose)."""
+    import scipy.sparse as sp_
+
+    _, is_int4, quantized = _panel_dtype(dtype)
+    if is_int4:
+        raise ValueError("int4 forward-adjoint panels are not supported; "
+                         "use int8 or the transposed-kernel layout")
+    pack = dict(dtype=dtype, n_buckets=n_buckets, row_group=row_group,
+                window=window)
+    A = shard_bucketed_panels(csr, p, block=block, **pack)
+    csr = sp_.csr_matrix(csr)
+    if quantized:
+        csr = _row_quantize_csr(csr, qmax=127)[0]
+        pack["quantize"] = False
+    AT = shard_bucketed_panels(csr.T.tocsr(), p, block=block_T, **pack)
+    return PanelsWithAdjoint(A, AT)
+
+
+@dataclass
+class ComposedPanels:
+    """The sharded composed operator ``M = A B`` (``kind="ab"``, m-space)
+    or ``M = B A`` (``"ba"``, n-space) from two panel sets: the distributed
+    twin of ``ProductOperator`` for the reference's composed hybrid path
+    (``run_2D_phantom.m:150-176``: LSQR on the Tikhonov-augmented M).
+
+    ``A``: the panels of A (m x n) over ray rows; ``BT``: the panels of B^T
+    (m x n) over ray rows.  Both directions of M come from the two kernels
+    of each panel, two collectives each (a gather and a reduce_scatter,
+    :func:`composed_local_ops`).  ``B``: optional forward-layout panels of B
+    itself (B's pixel rows): ``B u`` then runs K1 after a gather of the
+    m-sharded ``u`` instead of K3 on BT and a reduce_scatter.  With ``B``,
+    B and BT hold f32/bf16 values of one dtype, so that M's products stay
+    an exact adjoint pair."""
+
+    A: ShardedPanels
+    BT: ShardedPanels
+    kind: str
+    B: ShardedPanels | None = None
+
+    def __post_init__(self):
+        A, BT, B = self.A, self.BT, self.B
+        if self.kind not in ("ab", "ba"):
+            raise ValueError("kind must be 'ab' or 'ba'")
+        if A.shape != BT.shape or A.p != BT.p:
+            raise ValueError(
+                f"panel mismatch: A {A.shape}/p={A.p}, BT {BT.shape}/p={BT.p}")
+        if B is not None:
+            m, n = A.shape
+            if B.shape != (n, m) or B.p != A.p:
+                raise ValueError(
+                    f"B panels must cover B as (n, m)={(n, m)} at p={A.p}; "
+                    f"got {B.shape}/p={B.p}")
+            _require_exact_values("B", B)
+            _require_exact_values("BT", BT)
+            if B.storage_dtype != BT.storage_dtype:
+                raise ValueError(
+                    f"B/BT storage dtypes differ ({B.storage_dtype} vs "
+                    f"{BT.storage_dtype}): M's matvec/rmatvec would not be "
+                    "an exact adjoint pair")
+
+    @property
+    def shape(self):
+        m, n = self.A.shape
+        return (m, m) if self.kind == "ab" else (n, n)
+
+    @property
+    def p(self):
+        return self.A.p
+
+    @property
+    def nbytes(self) -> int:
+        return sum(pl.nbytes for pl in (self.A, self.BT, self.B)
+                   if pl is not None)
+
+    def to(self, device) -> "ComposedPanels":
+        return dataclasses.replace(
+            self, A=self.A.to(device), BT=self.BT.to(device),
+            B=None if self.B is None else self.B.to(device))
+
+
+def composed_local_ops(cp: ComposedPanels, mesh, dtype):
+    """(matvec, rmatvec) of the composed operator on this rank's shards
+    (a :func:`shard_view` on the mesh's device), both taking and returning
+    vectors sharded in M's own space."""
+    A_loc, BT_loc, B_loc = cp.A, cp.BT, cp.B
+
+    def A_fwd(x_loc):                  # n-sharded -> m-sharded rows of A
+        xw = gather_window(A_loc, x_loc, mesh)
+        return local_matvec(A_loc, xw).to(dtype)
+
+    def At_rs(v_loc):                  # m-sharded -> n-sharded A^T v
+        part = local_rmatvec_window(A_loc, v_loc)
+        return mesh.reduce_scatter(
+            scatter_window_to_full(A_loc, part).to(dtype))
+
+    def Bt_fwd(x_loc):                 # n-sharded -> m-sharded rows of B^T
+        xw = gather_window(BT_loc, x_loc, mesh)
+        return local_matvec(BT_loc, xw).to(dtype)
+
+    if B_loc is not None:
+        def B_rs(u_loc):               # m-sharded -> n-sharded B u (K1)
+            uw = gather_window(B_loc, u_loc, mesh)
+            return local_matvec(B_loc, uw).to(dtype)
+    else:
+        def B_rs(u_loc):               # m-sharded -> n-sharded B u (K3)
+            part = local_rmatvec_window(BT_loc, u_loc)
+            return mesh.reduce_scatter(
+                scatter_window_to_full(BT_loc, part).to(dtype))
+
+    if cp.kind == "ab":
+        return (lambda u: A_fwd(B_rs(u)),       # M u   = A (B u)
+                lambda v: Bt_fwd(At_rs(v)))     # M^T v = B^T (A^T v)
+    return (lambda x: B_rs(A_fwd(x)),           # M x   = B (A x)
+            lambda x: At_rs(Bt_fwd(x)))         # M^T x = A^T (B^T x)

@@ -24,6 +24,8 @@ loop writes in place and never reads a device value on the host.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -77,6 +79,30 @@ def _pad_batched(res: GMRESResult, maxit: int):
     )
 
 
+def _column_norms(X):
+    """Norms along the last (space) axis of a batch-first array."""
+    return torch.linalg.vector_norm(X, dim=-1)
+
+
+class Reductions(NamedTuple):
+    """The sums over the space axis that the batched cores make, as
+    functions: ``coeff`` the CGS2 coefficients (R, k+1, 1) of one pass,
+    ``norm_m``/``norm_sp``/``norm_n`` the norms along the last axis of
+    batch-first arrays in the image (m) space, the Krylov basis space and
+    the solution (n) space.  :data:`LOCAL` for one device; the sharded
+    solvers (``parallel/sharded_batched.py``) inject the sums over their
+    mesh, one collective each."""
+
+    coeff: Callable
+    norm_m: Callable
+    norm_sp: Callable
+    norm_n: Callable
+
+
+LOCAL = Reductions(coeff=lambda c: c, norm_m=_column_norms,
+                   norm_sp=_column_norms, norm_n=_column_norms)
+
+
 def _rows(a):
     """(space, R) -> a contiguous batch-first (R, space) copy."""
     return a.T.contiguous()
@@ -89,23 +115,24 @@ def _own(a, *perm):
     return a.permute(*perm).clone(memory_format=torch.contiguous_format)
 
 
-def _batched_cgs2(Qb, Hb, Wb, k, active):
+def _batched_cgs2(Qb, Hb, Wb, k, active, red=LOCAL):
     """Two-pass CGS2 + breakdown-masked adoption, shared by the in-scan and
     deferred batched cores (the deferred == in-scan parity contract).
 
     ``Qb`` (R, maxit+1, nsp) and ``Hb`` (R, maxit+1, maxit) are written in
     place, only where ``active``: frozen RHS keep their columns.  The
     products run against the k+1 columns set so far (the padded columns
-    beyond them are zero).  Returns the per-RHS breakdown flags."""
+    beyond them are zero).  Returns the per-RHS breakdown flags.  ``red``:
+    the sums over the basis space (:class:`Reductions`)."""
     dtype, device = Wb.dtype, Wb.device
     Qk = Qb[:, :k + 1]                                   # (R, k+1, nsp)
     W = Wb.unsqueeze(2)                                  # (R, nsp, 1)
-    c1 = torch.bmm(Qk, W)                                # (R, k+1, 1)
+    c1 = red.coeff(torch.bmm(Qk, W))                     # (R, k+1, 1)
     W = torch.baddbmm(W, Qk.transpose(1, 2), c1, alpha=-1)
-    c2 = torch.bmm(Qk, W)
+    c2 = red.coeff(torch.bmm(Qk, W))
     W = torch.baddbmm(W, Qk.transpose(1, 2), c2, alpha=-1).squeeze(2)
     h = (c1 + c2).squeeze(2)                             # (R, k+1)
-    hnorm = torch.linalg.vector_norm(W, dim=1)           # (R,)
+    hnorm = red.norm_sp(W)                               # (R,)
     breakdown = hnorm <= 0
     hsafe = torch.where(breakdown, torch.ones((), dtype=dtype, device=device),
                         hnorm)
@@ -118,11 +145,11 @@ def _batched_cgs2(Qb, Hb, Wb, k, active):
     return breakdown
 
 
-def _start(r0, maxit, dtype, device):
+def _start(r0, maxit, dtype, device, red=LOCAL):
     """beta, t and the zero-padded bases of a cold start (batch-first)."""
     r0b = _rows(r0)
     R, nsp = r0b.shape
-    beta = torch.linalg.vector_norm(r0b, dim=1)          # (R,)
+    beta = red.norm_sp(r0b)                              # (R,)
     beta_safe = torch.where(beta > 0, beta,
                             torch.ones((), dtype=dtype, device=device))
     Qb = torch.zeros((R, maxit + 1, nsp), dtype=dtype, device=device)
@@ -142,7 +169,7 @@ def _result(x, err_hist, res_hist, niters, Qb, Hb, beta, IMGb, Sb, active):
 
 def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
                   solution, x_true, maxit, tol, img_stage,
-                  x_offset=None, resume=None):
+                  x_offset=None, resume=None, red=LOCAL):
     """Shared loop: per-RHS CGS2 Arnoldi with multi-RHS operator products.
 
     ``first_mm``/``second_mm``: the two stages of the composed Krylov
@@ -155,6 +182,8 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
     iterate or None.  ``resume``: a prior batched :class:`GMRESResult`
     already padded to ``maxit`` — the loop continues at its history length
     with the carried per-RHS active flags (frozen RHS stay frozen).
+    ``red``: the sums over the space axes (:class:`Reductions`; the
+    sharded solvers run this loop on their slabs with the mesh's).
     """
     dtype, device = rhs.dtype, rhs.device
     like = dict(dtype=dtype, device=device)
@@ -164,7 +193,7 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
 
     if resume is None:
         k0 = 0
-        beta, Qb, Hb = _start(r0, maxit, dtype, device)
+        beta, Qb, Hb = _start(r0, maxit, dtype, device, red)
         R = Qb.shape[0]
         IMGb = torch.zeros((R, maxit, m_img), **like)
         Sb = (torch.zeros((R, maxit, nx), **like)
@@ -188,7 +217,7 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
         niters = resume.niters.to(torch.int32)
     tb = torch.zeros((R, maxit + 1), **like)
     tb[:, 0] = beta
-    xt_norm = torch.linalg.vector_norm(xt_b, dim=1)      # (R,)
+    xt_norm = red.norm_n(xt_b)                           # (R,)
     nan = torch.full((), float("nan"), **like)
     res_hist = torch.full((maxit, R), float("nan"), **like)
     err_hist = torch.full((maxit, R), float("nan"), **like)
@@ -203,7 +232,7 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
         IMGb[:, k] = Ub if img_stage == "first" else Wb
         if Sb is not None:
             Sb[:, k] = Ub
-        breakdown = _batched_cgs2(Qb, Hb, Wb, k, active)
+        breakdown = _batched_cgs2(Qb, Hb, Wb, k, active, red)
 
         kdim = k + 1
         y = project_solve(Hb, tb, kdim)                  # (R, maxit)
@@ -211,9 +240,9 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
         xk = torch.bmm(yk, basis[:, :kdim]).squeeze(1)   # (R, nx)
         if x_off_b is not None:
             xk = x_off_b + xk
-        res = torch.linalg.vector_norm(
-            rhs_b - torch.bmm(yk, IMGb[:, :kdim]).squeeze(1), dim=1) / b_norm
-        err = torch.linalg.vector_norm(xk - xt_b, dim=1) / xt_norm
+        res = red.norm_m(
+            rhs_b - torch.bmm(yk, IMGb[:, :kdim]).squeeze(1)) / b_norm
+        err = red.norm_n(xk - xt_b) / xt_norm
 
         x = torch.where(active[:, None], xk, x)
         res_hist[k] = torch.where(active, res, nan)
@@ -226,27 +255,29 @@ def _batched_core(first_mm, second_mm, r0, rhs, b_norm, project_solve,
 
 def _batched_core_deferred(first_mm, second_mm, r0, rhs, b_norm,
                            project_solve, solution, x_true, maxit, tol,
-                           img_stage, x_offset=None, select_lam=None):
+                           img_stage, x_offset=None, select_lam=None,
+                           red=LOCAL):
     """Deferred-histories batched loop (the multi-RHS twin of
     ``_gmres_core_deferred``): the loop runs ONLY the Arnoldi expansion
     (SpMM + CGS2 + image stacking); the per-(k, RHS) projected solves become
     one batched post-loop solve, and the residual/error histories two big
     batched products.  Early exit of the ITERATION is traded away exactly
     as in the single-RHS mode (``tol`` honored post hoc) — right for
-    fixed-budget serving solves.  No resume support.
+    fixed-budget serving solves.  No resume support.  ``red`` as in
+    :func:`_batched_core`.
     """
     dtype, device = rhs.dtype, rhs.device
     like = dict(dtype=dtype, device=device)
     rhs_b, xt_b = _rows(rhs), _rows(x_true)
     m_img, nx = rhs_b.shape[1], xt_b.shape[1]
     x_off_b = None if x_offset is None else _rows(x_offset)
-    beta, Qb, Hb = _start(r0, maxit, dtype, device)
+    beta, Qb, Hb = _start(r0, maxit, dtype, device, red)
     R = Qb.shape[0]
     tb = torch.zeros((R, maxit + 1), **like)
     tb[:, 0] = beta
     IMGb = torch.zeros((R, maxit, m_img), **like)
     Sb = torch.zeros((R, maxit, nx), **like) if solution == "image" else None
-    xt_norm = torch.linalg.vector_norm(xt_b, dim=1)
+    xt_norm = red.norm_n(xt_b)
     zero = torch.zeros((), **like)
     active = beta > 0
     nsteps = torch.zeros((R,), dtype=torch.int32, device=device)
@@ -259,7 +290,7 @@ def _batched_core_deferred(first_mm, second_mm, r0, rhs, b_norm,
         IMGb[:, k] = torch.where(a, Ub if img_stage == "first" else Wb, zero)
         if Sb is not None:
             Sb[:, k] = torch.where(a, Ub, zero)
-        breakdown = _batched_cgs2(Qb, Hb, Wb, k, active)
+        breakdown = _batched_cgs2(Qb, Hb, Wb, k, active, red)
         nsteps = nsteps + active
         broke = broke | (active & breakdown)
         active = active & ~breakdown
@@ -280,14 +311,13 @@ def _batched_core_deferred(first_mm, second_mm, r0, rhs, b_norm,
     # must reproduce the in-loop per-iteration ones
     with full_float32_matmul():
         RES = rhs_b[:, None, :] - torch.bmm(Yb, IMGb)    # (R, k, m_img)
-        res_full = (torch.linalg.vector_norm(RES, dim=2)
-                    / b_norm[:, None]).T
+        res_full = (red.norm_m(RES) / b_norm[:, None]).T
         del RES
         basis = Sb if solution == "image" else Qb[:, :maxit]
         X = torch.bmm(Yb, basis)                         # (R, k, nx)
     if x_off_b is not None:
         X = X + x_off_b[:, None, :]
-    err_full = (torch.linalg.vector_norm(X - xt_b[:, None, :], dim=2)
+    err_full = (red.norm_n(X - xt_b[:, None, :])
                 / xt_norm[:, None]).T                    # (maxit, R)
 
     hit = (ks[:, None] <= nsteps[None, :]) & (res_full <= tol)
@@ -342,6 +372,42 @@ def _slice_result(res: GMRESResult, sl):
         for name, axis in _BATCH_AXIS.items()})
 
 
+def _prepare_resume(kind, resume_from, x0, lam, maxit, defer_histories):
+    """A batched checkpoint checked against this solve (fingerprint of
+    ``x0``/``lam``, in-loop mode, stored images) and padded to ``maxit``;
+    None stays None."""
+    if resume_from is None:
+        return None
+    check_fingerprint(resume_from, x0, lam)
+    if defer_histories:
+        raise ValueError("defer_histories does not support resume_from")
+    if resume_from.IMG is None or (kind == "ab" and resume_from.S is None):
+        raise ValueError("resume_from must come from the batched "
+                         "fused solver (missing .IMG/.S)")
+    return _pad_batched(resume_from, maxit)
+
+
+def _lam_solvers(lam, trace_dim, gcv_grid, defer_histories):
+    """``(project_solve, select_lam)`` of a batched solve: the per-RHS
+    projected solve ``(Hb, tb, kdim) -> y`` of ``lam`` (None for
+    ``"gcv-final"``), and the one-shot selector of ``"gcv-final"`` (else
+    None)."""
+    if isinstance(lam, str) and lam == "gcv-final":
+        if not defer_histories:
+            raise ValueError(
+                "lam='gcv-final' requires defer_histories=True — it "
+                "selects lambda once per RHS from the final projected "
+                "problem, which only exists post-scan (the serving mode); "
+                "use lam='gcv' for per-iteration adaptive selection")
+        return None, _make_select_lam(trace_dim, gcv_grid)
+    _ps = _make_project_solve(lam, trace_dim, gcv_grid)
+
+    def project_solve(H, t, kdim):
+        return _ps(H, None, t, kdim)
+
+    return project_solve, None
+
+
 def _batched_solver(kind, A, B, b, x_true, tol, maxit, lam, gcv_grid,
                     x0, resume_from, chunk_rhs, defer_histories=False):
     b = as_vector(b)
@@ -361,34 +427,10 @@ def _batched_solver(kind, A, B, b, x_true, tol, maxit, lam, gcv_grid,
     if x0 is not None:
         x0 = torch.as_tensor(x0, **like).reshape(n, -1).expand(n, R)
 
-    if resume_from is not None:
-        check_fingerprint(resume_from, x0, lam)
-        if defer_histories:
-            raise ValueError("defer_histories does not support resume_from")
-        if resume_from.IMG is None or (kind == "ab" and resume_from.S is
-                                       None):
-            raise ValueError("resume_from must come from the batched "
-                             "fused solver (missing .IMG/.S)")
-        resume_from = _pad_batched(resume_from, maxit)
-
-    trace_dim = n if kind == "ba" else m
-    gcv_final = isinstance(lam, str) and lam == "gcv-final"
-    if gcv_final:
-        if not defer_histories:
-            raise ValueError(
-                "lam='gcv-final' requires defer_histories=True — it "
-                "selects lambda once per RHS from the final projected "
-                "problem, which only exists post-scan (the serving mode); "
-                "use lam='gcv' for per-iteration adaptive selection")
-        project_solve = None
-        select_lam = _make_select_lam(trace_dim, gcv_grid)
-    else:
-        _ps = _make_project_solve(lam, trace_dim, gcv_grid)
-
-        def project_solve(H, t, kdim):
-            return _ps(H, None, t, kdim)
-
-        select_lam = None
+    resume_from = _prepare_resume(kind, resume_from, x0, lam, maxit,
+                                  defer_histories)
+    project_solve, select_lam = _lam_solvers(
+        lam, n if kind == "ba" else m, gcv_grid, defer_histories)
     b_norm = torch.linalg.vector_norm(b, dim=0)
 
     parts = []

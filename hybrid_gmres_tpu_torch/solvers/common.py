@@ -351,10 +351,19 @@ def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
                        S=S, active=active_f)
 
 
-def safe_normalize(vec):
+def global_norm(vec, reduce=None):
+    """``||vec||``; with ``reduce`` (a sum over the ranks of a mesh, e.g.
+    ``Mesh.all_reduce``) the norm of the sharded vector whose local slab
+    ``vec`` is, one collective."""
+    if reduce is None:
+        return torch.linalg.vector_norm(vec)
+    return torch.sqrt(reduce(torch.dot(vec, vec)))
+
+
+def safe_normalize(vec, reduce=None):
     """(vec/||vec||, ||vec||, ok): zero vectors normalize to zero, ok=False.
-    All three stay on the device."""
-    nrm = torch.linalg.vector_norm(vec)
+    All three stay on the device.  ``reduce``: as in :func:`global_norm`."""
+    nrm = global_norm(vec, reduce)
     ok = nrm > 0
     safe = torch.where(ok, nrm, torch.ones_like(nrm))
     return torch.where(ok, vec / safe, torch.zeros_like(vec)), nrm, ok

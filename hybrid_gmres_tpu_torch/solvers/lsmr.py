@@ -37,6 +37,7 @@ from hybrid_gmres_tpu_torch.krylov.projected import (
 from hybrid_gmres_tpu_torch.solvers.common import (
     GKBResult,
     GKBState,
+    global_norm,
     rel_error_fn,
     safe_normalize,
 )
@@ -85,22 +86,34 @@ def lsmr(A, b, x_true=None, tol: float = 1e-6, maxit: int | None = None,
     Each step applies ``A`` and ``A^T`` a second time, for the true
     residual and ``||A^T r||``."""
     A, b, x_true, x0, maxit = prepare_inputs(A, b, x_true, x0, maxit)
+    fp = resume_fingerprint(x0, None, device=b.device)   # before the loop
+    if resume_from is not None:
+        check_fingerprint(resume_from, x0, None)
+    return _lsmr_core(A, b, x0, torch.linalg.vector_norm(b),
+                      operator_fro_norm(A, fro_norm, b),
+                      rel_error_fn(x_true), maxit, tol, reorth, resume_from,
+                      fp)
+
+
+def _lsmr_core(A, b, x0, b_norm, fro_norm, error_fn, maxit, tol, reorth,
+               resume_from, fp, reduce=None):
+    """The LSMR recurrence on ``A`` from the iterate ``x0`` (None: zero),
+    as :func:`lsmr` documents it; returns the :class:`GKBResult`.
+    ``reduce``: the sum over a mesh when ``A`` acts on this rank's slabs of
+    sharded vectors (``parallel/sharded_gkb.py``): every norm and
+    purification pass then reduces over it."""
     dtype, device = b.dtype, b.device
     like = dict(dtype=dtype, device=device)
     eps = torch.finfo(dtype).eps
-    b_norm = torch.linalg.vector_norm(b)
-    fro_norm = operator_fro_norm(A, fro_norm, b)
-    error_fn = rel_error_fn(x_true)
-    m, n = A.shape
-    fp = resume_fingerprint(x0, None, device=device)   # before the loop
+    n = A.shape[1]
 
     k0, res_hist, err_hist = resumed_histories(resume_from, maxit, b)
     ar_hist = torch.full((maxit,), float("nan"), **like)
     Ub = Vb = None
     if resume_from is None:
         b_iter = b if x0 is None else b - A.matvec(x0)
-        u, beta1, _ = safe_normalize(b_iter)
-        v, alpha1, _ = safe_normalize(A.rmatvec(u))
+        u, beta1, _ = safe_normalize(b_iter, reduce)
+        v, alpha1, _ = safe_normalize(A.rmatvec(u), reduce)
         x = torch.zeros((n,), **like) if x0 is None else x0
         h, hbar = v, torch.zeros((n,), **like)
         one = torch.ones((), **like)
@@ -112,7 +125,6 @@ def lsmr(A, b, x_true=None, tol: float = 1e-6, maxit: int | None = None,
             Ub = stored_basis(u, maxit + 1)
             Vb = stored_basis(v, maxit + 1)
     else:
-        check_fingerprint(resume_from, x0, None)
         carry = resume_from.carry
         check_reorth_carry(carry, reorth, 14)
         (x, u, v, h, hbar, alpha, zetabar, alphabar, rho, rhobar, cbar, sbar,
@@ -127,12 +139,12 @@ def lsmr(A, b, x_true=None, tol: float = 1e-6, maxit: int | None = None,
     for k in range(k0, maxit):
         uhat = A.matvec(v) - alpha * u
         if reorth:
-            uhat = purify(Ub[:k + 1], uhat)
-        u_n, beta_k, ok_u = safe_normalize(uhat)
+            uhat = purify(Ub[:k + 1], uhat, reduce)
+        u_n, beta_k, ok_u = safe_normalize(uhat, reduce)
         vhat = A.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:k + 1], vhat)
-        v_n, alpha_n, ok_v = safe_normalize(vhat)
+            vhat = purify(Vb[:k + 1], vhat, reduce)
+        v_n, alpha_n, ok_v = safe_normalize(vhat, reduce)
 
         alphahat = alphabar
         rhoold = rho
@@ -159,9 +171,9 @@ def lsmr(A, b, x_true=None, tol: float = 1e-6, maxit: int | None = None,
         h_n = v_n - (thetanew / rho_n) * h
 
         r = b - A.matvec(x_n)
-        r_norm = torch.linalg.vector_norm(r)
+        r_norm = global_norm(r, reduce)
         res_k = r_norm / (b_norm + eps)
-        ar_k = torch.linalg.vector_norm(A.rmatvec(r)) / (
+        ar_k = global_norm(A.rmatvec(r), reduce) / (
             fro_norm * torch.clamp(r_norm, min=eps))
         err_k = error_fn(x_n)
 
@@ -279,10 +291,6 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
     if x0_reg not in ("correction", "full"):
         raise ValueError("x0_reg must be 'correction' or 'full'")
     A, b, x_true, x0, maxit = prepare_inputs(A, b, x_true, x0, maxit)
-    dtype, device = b.dtype, b.device
-    like = dict(dtype=dtype, device=device)
-    m, n = A.shape
-    b_norm = torch.linalg.vector_norm(b)
     base_error_fn = rel_error_fn(x_true)
     have_x0 = x0 is not None
     b_iter = b - A.matvec(x0) if have_x0 else b
@@ -292,15 +300,38 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
     # produce different histories for the same x0/lam)
     tag = x0_reg if (have_x0 and x0_reg == "full") else ""
     # before the loop, as in lsqr()
-    fp = resume_fingerprint(x0, lam, tag=tag, device=device)
+    fp = resume_fingerprint(x0, lam, tag=tag, device=b.device)
+    if resume_from is not None:
+        check_fingerprint(resume_from, x0, lam, tag=tag)
+    lam_fn = make_hybrid_lsmr_lam_fn(lam, gcv_grid, A.shape[1], maxit,
+                                     b.dtype, b.device)
+    d, state = _hybrid_lsmr_core(
+        A, b, b_iter, torch.linalg.vector_norm(b), error_fn, lam_fn,
+        maxit, tol, rank1_mode, reorth, resume_from,
+        x0 if have_x0 and x0_reg == "full" else None, fp)
+    return GKBResult(x=x0 + d if have_x0 else d,
+                     err_hist=state.err_hist, res_hist=state.res_hist,
+                     niters=state.carry[7], state=state)
 
-    lam_fn = make_hybrid_lsmr_lam_fn(lam, gcv_grid, n, maxit, dtype, device)
+
+def _hybrid_lsmr_core(A, b, b_iter, b_norm, error_fn, lam_fn, maxit, tol,
+                      rank1_mode, reorth, resume_from, x0_full, fp,
+                      reduce=None):
+    """The hybrid LSMR recurrence on ``A`` for the correction ``d`` of
+    ``b_iter`` (``b - A x0``), as :func:`hybrid_lsmr` documents it.
+    ``x0_full``: the warm start of ``x0_reg="full"`` (else None).  Returns
+    ``(d, state)``.  ``reduce``: the sum over a mesh when ``A`` acts on
+    this rank's slabs of sharded vectors (``parallel/sharded_gkb.py``)."""
+    dtype, device = b.dtype, b.device
+    like = dict(dtype=dtype, device=device)
+    n = A.shape[1]
 
     def roff(Vk, lam_k):
         # x0_reg="full": regularize ||x0 + V y||^2 -> RHS -= lam V^T x0
-        if have_x0 and x0_reg == "full":
-            return -lam_k * (Vk @ x0)
-        return None
+        if x0_full is None:
+            return None
+        c = Vk @ x0_full
+        return -lam_k * (c if reduce is None else reduce(c))
 
     def solve_at(Bmat_k, alpha_next, beta_k, kdim):
         """The iterate of step ``kdim`` and its records."""
@@ -310,14 +341,14 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
                                    kdim, rank1_mode,
                                    rhs_offset=roff(Vk, lam_k))
         x_k = Vk.T @ y
-        res_k = torch.linalg.vector_norm(b_iter - A.matvec(x_k)) / b_norm
+        res_k = global_norm(b_iter - A.matvec(x_k), reduce) / b_norm
         return x_k, res_k, error_fn(x_k)
 
     k0, res_hist, err_hist = resumed_histories(resume_from, maxit, b)
     Ub = None
     if resume_from is None:
-        u, beta1, _ = safe_normalize(b_iter)
-        v, alpha, _ = safe_normalize(A.rmatvec(u))
+        u, beta1, _ = safe_normalize(b_iter, reduce)
+        v, alpha, _ = safe_normalize(A.rmatvec(u), reduce)
         Vb = stored_basis(v, maxit)
         Bmat = torch.zeros((maxit + 1, maxit), **like)
         x = torch.zeros((n,), **like)
@@ -327,7 +358,6 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
         niters = torch.zeros((), dtype=torch.int32, device=device)
         ab1 = alpha * beta1
     else:
-        check_fingerprint(resume_from, x0, lam, tag=tag)
         x, u, v, Vp, Bp, alpha, active, niters, Up, ab1 = resume_from.carry
         if bool(Up.numel()) != bool(reorth):
             raise ValueError("resume_from state does not match reorth=; "
@@ -363,8 +393,8 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
         Bmat_n[k, k] = alpha
         uhat = A.matvec(v) - alpha * u
         if reorth:
-            uhat = purify(Ub[:kdim], uhat)
-        u_n, beta_k, ok_u = safe_normalize(uhat)
+            uhat = purify(Ub[:kdim], uhat, reduce)
+        u_n, beta_k, ok_u = safe_normalize(uhat, reduce)
         Bmat_n[k + 1, k] = beta_k
 
         # The carry always ADVANCES the right recurrence (so a checkpoint
@@ -372,8 +402,8 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
         # REPORTING (hybrid_lsmr_solver.m:26-33) is recovered below.
         vhat = A.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:kdim], vhat)
-        v2, alpha2, ok2 = safe_normalize(vhat)
+            vhat = purify(Vb[:kdim], vhat, reduce)
+        v2, alpha2, ok2 = safe_normalize(vhat, reduce)
         adv = k < maxit - 1
         alpha_rep = alpha2 if adv else alpha        # stale at final iter
         adopt = active & ok_u & (ok2 if adv else True)
@@ -399,7 +429,5 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
 
     U_out = Ub.T if reorth else torch.zeros((0, 0), **like)
     carry = (x, u, v, Vb.T, Bmat, alpha, active, niters, U_out, ab1)
-    state = GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
-                     fp=fp)
-    return GKBResult(x=x0 + x if have_x0 else x, err_hist=err_hist,
-                     res_hist=res_hist, niters=niters, state=state)
+    return x, GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
+                       fp=fp)

@@ -45,11 +45,15 @@ from hybrid_gmres_tpu_torch.utils.checkpoint import (
 from hybrid_gmres_tpu_torch.utils.device import scalar_tensor
 
 
-def purify(basis_rows, vec):
+def purify(basis_rows, vec, reduce=None):
     """Two CGS passes of ``vec`` against the basis vectors stored as the
-    rows of ``basis_rows`` (k, space): plain dense products."""
-    vec = vec - basis_rows.T @ (basis_rows @ vec)
-    return vec - basis_rows.T @ (basis_rows @ vec)
+    rows of ``basis_rows`` (k, space): plain dense products.  ``reduce``:
+    for a sharded basis, the sum over the mesh of each pass's coefficients
+    (one fused collective per pass)."""
+    for _ in range(2):
+        c = basis_rows @ vec
+        vec = vec - basis_rows.T @ (c if reduce is None else reduce(c))
+    return vec
 
 
 def stored_basis(first, ncols, prior=None):
@@ -103,19 +107,22 @@ def patch_true_residual(res_hist, niters, true_res):
 
 
 def _lsqr_core(iter_op, b_iter, residual_fn, error_fn, b_norm_for_estimate,
-               maxit, tol, reorth=False, resume_from=None):
+               maxit, tol, reorth=False, resume_from=None, reduce=None):
     """The LSQR recurrence on ``iter_op``.  ``residual_fn``: x -> true
     relative residual, or None for the cheap estimate.  Returns ``(x,
     res_hist, err_hist, niters, carry)``: the UNPATCHED histories of length
     ``maxit`` and the carry in the JAX order ``(x, u, v, w, phi_bar,
-    rho_bar, alpha, active, niters, U, V)``."""
+    rho_bar, alpha, active, niters, U, V)``.  ``reduce``: the sum over a
+    mesh when ``iter_op`` acts on this rank's slabs of sharded vectors
+    (``parallel/sharded_gkb.py``): every norm and purification pass then
+    reduces over it."""
     dtype, device = b_iter.dtype, b_iter.device
     m, n = iter_op.shape
     k0, res_hist, err_hist = resumed_histories(resume_from, maxit, b_iter)
     Ub = Vb = None
     if resume_from is None:
-        u, beta, _ = safe_normalize(b_iter)
-        v, alpha, _ = safe_normalize(iter_op.rmatvec(u))
+        u, beta, _ = safe_normalize(b_iter, reduce)
+        v, alpha, _ = safe_normalize(iter_op.rmatvec(u), reduce)
         w = v
         x = torch.zeros((n,), dtype=dtype, device=device)
         phi_bar, rho_bar, alpha_c = beta, alpha, alpha
@@ -139,12 +146,12 @@ def _lsqr_core(iter_op, b_iter, residual_fn, error_fn, b_norm_for_estimate,
     for k in range(k0, maxit):
         uhat = iter_op.matvec(v) - alpha_c * u
         if reorth:
-            uhat = purify(Ub[:k + 1], uhat)
-        u_n, beta_k, ok_u = safe_normalize(uhat)
+            uhat = purify(Ub[:k + 1], uhat, reduce)
+        u_n, beta_k, ok_u = safe_normalize(uhat, reduce)
         vhat = iter_op.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:k + 1], vhat)
-        v_n, alpha_n, ok_v = safe_normalize(vhat)
+            vhat = purify(Vb[:k + 1], vhat, reduce)
+        v_n, alpha_n, ok_v = safe_normalize(vhat, reduce)
 
         rho = torch.hypot(rho_bar, beta_k)
         c = rho_bar / rho

@@ -5,7 +5,9 @@ the leaves of a JAX ``PallasBSROperator`` handed over as numpy arrays, so
 both packages compute with the very same panels;
 :func:`gmres_result_from_numpy` does the same for a GMRES result, and
 :func:`gkb_state_from_numpy` / :func:`gkb_result_from_numpy` for the GKB
-(LSQR/LSMR) family, so the port can resume a solve the JAX package began.
+(LSQR/LSMR) family, so the port can resume a solve the JAX package began;
+:func:`sharded_panels_from_numpy`, :func:`panels_with_adjoint_from_numpy`
+and :func:`composed_panels_from_numpy` for the sharded panels.
 Nothing here imports JAX:
 the caller does ``np.asarray`` on each leaf.  These helpers exist for the
 parity tests, so ``device`` is a required keyword.
@@ -22,6 +24,8 @@ from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
 from hybrid_gmres_tpu_torch.ops.sparse import BucketedBlockELL
 from hybrid_gmres_tpu_torch.ops.spmv_cuda import BlockELLOperator
 from hybrid_gmres_tpu_torch.parallel.panels import (
+    ComposedPanels,
+    PanelsWithAdjoint,
     ShardedPanels,
     _shard_forms,
 )
@@ -164,3 +168,24 @@ def sharded_panels_from_numpy(buckets, inv_perm, win_start, shape, ncb,
         shards.append(_shard_forms(bell, scale, 0, win_start[i],
                                    bell.shape, bell.ncb).to(device))
     return dataclasses.replace(sp_, shards=tuple(shards))
+
+
+def panels_with_adjoint_from_numpy(A, AT, *, device) -> PanelsWithAdjoint:
+    """The port's ``PanelsWithAdjoint`` from a JAX one: ``A`` and ``AT``
+    are mappings with the keyword arguments of
+    :func:`sharded_panels_from_numpy` (the leaves of ``pair.A`` and
+    ``pair.AT``); the pair is checked as the JAX constructor checks it."""
+    return PanelsWithAdjoint(sharded_panels_from_numpy(**A, device=device),
+                             sharded_panels_from_numpy(**AT, device=device))
+
+
+def composed_panels_from_numpy(A, BT, kind, B=None, *,
+                               device) -> ComposedPanels:
+    """The port's ``ComposedPanels`` from a JAX one: ``A``, ``BT`` and the
+    optional ``B`` are mappings with the keyword arguments of
+    :func:`sharded_panels_from_numpy`, ``kind`` is ``"ab"`` or ``"ba"``."""
+    return ComposedPanels(
+        sharded_panels_from_numpy(**A, device=device),
+        sharded_panels_from_numpy(**BT, device=device), kind,
+        B=None if B is None else sharded_panels_from_numpy(**B,
+                                                           device=device))

@@ -14,9 +14,11 @@ with its tolerances:
     1e-3 (it carries the ill-conditioned directions);
   * the analytic communication volume exactly.
 
-Not mirrored: the GSPMD test (line 75; PyTorch has no sharding propagation
-short of DTensor), the two that read XLA's HLO (lines 1164, 1401), and the
-GKB, RTP, composed-panel and 2-D tests, whose modules are not ported yet.
+Not mirrored here: the GSPMD test (line 75; PyTorch has no sharding
+propagation short of DTensor), the two that read XLA's HLO (lines 1164,
+1401), and the 2-D tests, whose modules are not ported yet.  The GKB, RTP,
+composed-panel and multi-RHS tests are mirrored in
+``tests/test_torch_parallel_solvers.py``.
 """
 
 import numpy as np

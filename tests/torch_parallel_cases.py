@@ -1,8 +1,10 @@
-"""The port's side of ``tests/test_torch_parallel.py``, run on 4 gloo ranks.
+"""The port's side of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_parallel_solvers.py``, run on 4 gloo ranks.
 
 This module imports no JAX: :func:`spawn` starts the ranks with the
 ``spawn`` method, each imports this module afresh, joins one gloo process
-group on localhost, runs every case of :data:`CASES` on the inputs the test
+group on localhost, runs every case of one group (:data:`CASES` for the
+first file, :data:`SOLVER_CASES` for the second) on the inputs the test
 module made (numpy arrays) and sends its results back as numpy arrays.  A
 case that raises records the exception's type and message instead, on
 every rank alike (every case raises, if at all, before its first
@@ -415,7 +417,407 @@ CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
 
-def _worker(rank, port, inputs, queue):
+# --------------------------------------------------------------------------
+# The solver cases of tests/test_torch_parallel_solvers.py (the sharded RTP,
+# GKB and batched modules).
+# --------------------------------------------------------------------------
+
+def batched_pair(m=64, n=32, R=3, seed=1):
+    """tests/test_parallel.py's ``_batched_pair``: float32 A, a perturbed
+    transpose B, R true images and noisy sinograms."""
+    rng = np.random.default_rng(seed)
+    Ad = (rng.standard_normal((m, n)) * (rng.random((m, n)) < 0.3)
+          ).astype(np.float32)
+    Bd = (Ad.T + 1e-3 * rng.standard_normal((n, m))).astype(np.float32)
+    x_true = rng.standard_normal((n, R)).astype(np.float32)
+    b = (Ad @ x_true + 0.01 * rng.standard_normal((m, R))
+         ).astype(np.float32)
+    return Ad, Bd, b, x_true
+
+
+def banded_pair(R=3, seed=3):
+    """A block-banded pair whose panels are windowed at p = 4 (the upper
+    band: L = 2 shifts), R right-hand sides."""
+    Ad = banded(P, seed, offsets=UPPER_BAND)
+    n = Ad.shape[0]
+    rng = np.random.default_rng(seed)
+    Bd = (Ad.T + _rand_sparse(n, seed + 2)).tocsr()
+    xt = rng.standard_normal((n, R)).astype(np.float32)
+    b = (Ad @ xt + 0.01 * rng.standard_normal((n, R))).astype(np.float32)
+    return Ad, Bd, b, xt
+
+
+def _gkb(r):
+    out = {"x": r.x, "err_hist": r.err_hist, "res_hist": r.res_hist,
+           "niters": r.niters}
+    if r.ar_hist is not None:
+        out["ar_hist"] = r.ar_hist
+    return out
+
+
+def _bres(r):
+    return {"x": r.x, "err_hist": r.err_hist, "res_hist": r.res_hist,
+            "niters": r.niters, "active": r.active}
+
+
+def _error(call):
+    """The message of the ValueError ``call()`` raises."""
+    try:
+        call()
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def _calls(mesh):
+    return np.array([mesh.calls[c] for c in
+                     ("all_reduce", "all_gather", "reduce_scatter", "shift")])
+
+
+def scase_gkb_dense(mesh, inp):
+    """The dense-slab GKB solvers in float64 on the test_parallel prob."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_basis, ba_gmres_sharded_basis, hybrid_lsmr_sharded,
+        hybrid_lsqr_sharded, lsmr_sharded, lsqr_sharded, shard_problem)
+
+    A, _, b, xt = dense_prob()
+    kw = dict(tol=1e-12, maxit=16, mesh=mesh)
+    out = {"lsqr": _gkb(lsqr_sharded(A, b, xt, **kw)),
+           "hybrid_lsqr": _gkb(hybrid_lsqr_sharded(A, b, xt, lam=1e-3, **kw)),
+           "lsmr": _gkb(lsmr_sharded(A, b, xt, **kw))}
+    for mode in ("last", "first"):
+        out[f"hybrid_lsmr {mode}"] = _gkb(hybrid_lsmr_sharded(
+            A, b, xt, lam=1e-3, rank1_mode=mode, **kw))
+    kw = dict(tol=0.0, mesh=mesh)
+    full = lsqr_sharded(A, b, xt, maxit=16, **kw)
+    half = lsqr_sharded(A, b, xt, maxit=8, **kw)
+    out["resume"] = {
+        "full": _gkb(full), "half": _gkb(half),
+        "half_state_res": half.state.res_hist,
+        "resumed": _gkb(lsqr_sharded(A, b, xt, maxit=16,
+                                     resume_from=half.state, **kw))}
+    A_s, B_s, b_s = shard_problem(A, A.T, b, mesh)
+    out["equivalence"] = {
+        "ba": _res(ba_gmres_sharded_basis(A_s, B_s, b_s, xt, maxit=6, **kw)),
+        "lsmr": _gkb(lsmr_sharded(A, b, xt, maxit=6, **kw)),
+        "ab": _res(ab_gmres_sharded_basis(A_s, B_s, b_s, xt, maxit=6, **kw)),
+        "lsqr": _gkb(lsqr_sharded(A, b, xt, maxit=6, **kw))}
+    return out
+
+
+def scase_gkb_deriv2(mesh, inp):
+    """deriv2 n=32 (float64): reorth, warm starts, resumes and the
+    full-depth equivalence oracles."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_basis, ba_gmres_sharded_basis, hybrid_lsmr_sharded,
+        hybrid_lsqr_sharded, lsmr_sharded, lsqr_sharded, shard_problem)
+
+    A, b, xt, x0_lsqr, x0_lsmr = inp["deriv2"]
+    kw = dict(tol=0.0, mesh=mesh)
+    out = {"reorth": {
+        name: _gkb(f(A, b, xt, maxit=12, reorth=True, **extra, **kw))
+        for name, f, extra in (("lsqr", lsqr_sharded, {}),
+                               ("lsmr", lsmr_sharded, {}),
+                               ("hybrid_lsmr", hybrid_lsmr_sharded,
+                                {"lam": 1e-3}))}}
+    hk = dict(lam=1e-3, x0=x0_lsqr, **kw)
+    out["hybrid_lsqr_x0"] = _gkb(hybrid_lsqr_sharded(A, b, xt, maxit=8,
+                                                     **hk))
+    for reorth in (False, True):
+        part = hybrid_lsqr_sharded(A, b, xt, maxit=4, reorth=reorth, **hk)
+        out[f"hybrid_lsqr_resume {reorth}"] = {
+            "full": _gkb(hybrid_lsqr_sharded(A, b, xt, maxit=8,
+                                             reorth=reorth, **hk)),
+            "resumed": _gkb(hybrid_lsqr_sharded(
+                A, b, xt, maxit=8, reorth=reorth, resume_from=part.state,
+                **hk))}
+    out["reorth_mismatch"] = _error(lambda: hybrid_lsqr_sharded(
+        A, b, xt, maxit=8, reorth=False, resume_from=part.state, **hk))
+    part = lsmr_sharded(A, b, xt, maxit=4, **kw)
+    out["lsmr_resume"] = {
+        "full": _gkb(lsmr_sharded(A, b, xt, maxit=8, **kw)),
+        "resumed": _gkb(lsmr_sharded(A, b, xt, maxit=8,
+                                     resume_from=part.state, **kw))}
+    A_s, B_s, b_s = shard_problem(A, A.T, b, mesh)
+    k = 32
+    out["equivalence"] = {
+        "ba": _res(ba_gmres_sharded_basis(A_s, B_s, b_s, xt, maxit=k, **kw)),
+        "lsmr": _gkb(lsmr_sharded(A, b, xt, maxit=k, reorth=True, **kw)),
+        "ab": _res(ab_gmres_sharded_basis(A_s, B_s, b_s, xt, maxit=k, **kw)),
+        "lsqr": _gkb(lsqr_sharded(A, b, xt, maxit=k, reorth=True, **kw)),
+        "hba": _res(ba_gmres_sharded_basis(A_s, B_s, b_s, xt, maxit=k,
+                                           lam=1e-3, **kw)),
+        "hlsmr": _gkb(hybrid_lsmr_sharded(A, b, xt, maxit=k, lam=1e-3,
+                                          reorth=True, **kw))}
+    out["hybrid_lsmr_x0"] = {
+        reg: _gkb(hybrid_lsmr_sharded(A, b, xt, maxit=10, lam=1e-3,
+                                      x0=x0_lsmr, x0_reg=reg, **kw))
+        for reg in ("correction", "full")}
+    return out
+
+
+def scase_gkb_panels(mesh, inp):
+    """The GKB solvers on the three panel shapes, float32."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.parallel import (
+        ComposedPanels, PanelsWithAdjoint, build_panels_with_adjoint,
+        hybrid_lsmr_sharded, hybrid_lsqr_sharded, lsmr_sharded, lsqr_sharded,
+        shard_bucketed_panels)
+    from hybrid_gmres_tpu_torch.utils.convert import (
+        composed_panels_from_numpy, panels_with_adjoint_from_numpy)
+
+    def panels(a, **kw):
+        return shard_bucketed_panels(_csr(a), P, **kw)
+
+    kw = dict(tol=0.0, mesh=mesh)
+    out = {}
+    Ad, _, b, xt = sparse_pair(64, 32, seed=4)
+    out["lsqr"] = _gkb(lsqr_sharded(panels(Ad), b, xt, maxit=10, **kw))
+    Ad, _, b, xt = sparse_pair(64, 32, seed=21)
+    A_p = panels(Ad)
+    half = lsqr_sharded(A_p, b, xt, maxit=6, **kw)
+    out["resume"] = {
+        "full": _gkb(lsqr_sharded(A_p, b, xt, maxit=12, **kw)),
+        "resumed": _gkb(lsqr_sharded(A_p, b, xt, maxit=12,
+                                     resume_from=half.state, **kw))}
+    Ad, _, b, xt = sparse_pair(64, 32, seed=6)
+    out["int8"] = _gkb(lsqr_sharded(panels(Ad, dtype=np.int8), b, xt,
+                                    maxit=8, **kw))
+    Ad, _, b, xt = sparse_pair(64, 32, seed=23)
+    x0 = (np.random.default_rng(24).standard_normal(32) * 0.1).astype(
+        np.float32)
+    A_p = panels(Ad)
+    part = lsqr_sharded(A_p, b, xt, maxit=3, x0=x0, **kw)
+    out["warm"] = {
+        "lsqr": _gkb(lsqr_sharded(A_p, b, xt, maxit=6, x0=x0, **kw)),
+        "resumed": _gkb(lsqr_sharded(A_p, b, xt, maxit=6, x0=x0,
+                                     resume_from=part.state, **kw)),
+        "lsmr": _gkb(lsmr_sharded(A_p, b, xt, maxit=6, x0=x0, **kw))}
+    Ad, _, b, xt = sparse_pair(64, 32, seed=13)
+    pair = PanelsWithAdjoint(panels(Ad), panels(Ad.T.copy()))
+    out["adjoint"] = {
+        "lsqr": _gkb(lsqr_sharded(pair, b, xt, maxit=6, **kw)),
+        "hybrid_lsmr": _gkb(hybrid_lsmr_sharded(pair, b, xt, maxit=6,
+                                                lam=1e-3, **kw))}
+    Ad, _, b, xt = sparse_pair(64, 32, seed=19)
+    out["adjoint_int8"] = {
+        "pair": _gkb(lsqr_sharded(build_panels_with_adjoint(
+            _csr(Ad), P, dtype=np.int8), b, xt, maxit=6, **kw)),
+        "transposed": _gkb(lsqr_sharded(panels(Ad, dtype=np.int8), b, xt,
+                                        maxit=6, **kw))}
+    Ad, Bd, b, xt = sparse_pair(64, 64, seed=9)
+    for kind in ("ab", "ba"):
+        M = ComposedPanels(panels(Ad), panels(Bd.T), kind)
+        rhs = b if kind == "ab" else (Bd @ b).astype(np.float32)
+        out[f"composed {kind}"] = {
+            "lsqr": _gkb(lsqr_sharded(M, rhs, maxit=8, **kw)),
+            "hybrid_lsqr": _gkb(hybrid_lsqr_sharded(M, rhs, maxit=8,
+                                                    lam=1e-2, **kw))}
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=17)
+    d = (Bd @ b).astype(np.float32)
+    out["composed_forward"] = {
+        name: _gkb(lsqr_sharded(ComposedPanels(panels(Ad), panels(Bd.T),
+                                               "ba", B=B), d, xt, maxit=5,
+                                **kw))
+        for name, B in (("transposed", None), ("forward", panels(Bd)))}
+    # the pair and the composed operator converted from the JAX package's
+    # panels, each rank placing its shard on its device
+    conv = inp["converted"]
+    pair = panels_with_adjoint_from_numpy(*conv["pair"], device="cpu")
+    M = composed_panels_from_numpy(*conv["composed"], device="cpu")
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=13)
+    out["converted"] = {
+        "pair": _gkb(lsqr_sharded(pair, b, xt, maxit=4, **kw)),
+        "composed": _gkb(lsqr_sharded(M, (Bd @ b).astype(np.float32), xt,
+                                      maxit=4, **kw))}
+    calls0 = _calls(mesh)
+    lsqr_sharded(pair, torch.from_numpy(b), xt, maxit=4, **kw)
+    out["converted"]["calls"] = _calls(mesh) - calls0
+    return out
+
+
+def scase_rtp(mesh, inp):
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_rtp_sharded, ba_gmres_rtp_sharded, ba_gmres_sharded_pallas)
+
+    f = {"ba": ba_gmres_rtp_sharded, "ab": ab_gmres_rtp_sharded}
+    out = {}
+    _, _, b, xt, A, BT = _panel_pair(17)
+    for kind in ("ba", "ab"):
+        calls0 = _calls(mesh)
+        out[kind] = _res(f[kind](A, BT, b, xt, tol=0.0, maxit=8, lam=1e-2,
+                                 mesh=mesh))
+        out[kind]["calls"] = _calls(mesh) - calls0
+    _, _, b, xt, A, BT = _panel_pair(18)
+    kw = dict(tol=0.0, maxit=8, lam=1e-1, mesh=mesh)
+    out["vs_ptr"] = {
+        "rtp": _res(ba_gmres_rtp_sharded(A, BT, b, xt, **kw)),
+        "ptr": _res(ba_gmres_sharded_pallas(A, BT, b, xt, **kw))}
+    Ad, Bd, b, xt, A, BT = _panel_pair(5)
+    from hybrid_gmres_tpu_torch.parallel import shard_bucketed_panels
+
+    B = shard_bucketed_panels(_csr(Bd), P)
+    kw = dict(tol=0.0, maxit=6, lam=1e-3, mesh=mesh)
+    for kind in ("ba", "ab"):
+        out[f"forward {kind}"] = {
+            "transposed": _res(f[kind](A, BT, b, xt, **kw)),
+            "forward": _res(f[kind](A, None, b, xt, B_panels=B, **kw))}
+    return out
+
+
+def scase_batched(mesh, inp):
+    import torch
+
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_batched, ba_gmres_sharded_batched,
+        shard_bucketed_panels)
+
+    f = {"ba": ba_gmres_sharded_batched, "ab": ab_gmres_sharded_batched}
+
+    def pair(Ad, Bd):
+        return (shard_bucketed_panels(_csr(Ad), P),
+                shard_bucketed_panels(_csr(Bd.T), P))
+
+    out = {}
+    Ad, Bd, b, xt = batched_pair()
+    A, BT = pair(Ad, Bd)
+    for kind in ("ba", "ab"):
+        for lam in (None, 1e-3):
+            out[f"{kind} {lam}"] = _bres(f[kind](
+                A, BT, b, xt, tol=0.0, maxit=6, lam=lam, mesh=mesh))
+        out[f"{kind} deferred"] = _bres(f[kind](
+            A, BT, b, xt, tol=0.0, maxit=6, lam=1e-3, mesh=mesh,
+            defer_histories=True))
+        # the collectives of a solve do not depend on R (and chunking off)
+        counts = []
+        for R in (1, 3):
+            calls0 = _calls(mesh)
+            f[kind](A, BT, b[:, :R], xt[:, :R], tol=0.0, maxit=6, lam=1e-3,
+                    mesh=mesh)
+            counts.append(_calls(mesh) - calls0)
+        out[f"{kind} calls"] = np.stack(counts)
+    Ad, Bd, b, xt = batched_pair(R=5, seed=4)
+    A, BT = pair(Ad, Bd)
+    x0 = (xt + 0.1 * np.random.default_rng(9).standard_normal(xt.shape)
+          ).astype(np.float32)
+    kw = dict(tol=0.0, maxit=5, lam=1e-3, mesh=mesh)
+    out["warm"] = _bres(ba_gmres_sharded_batched(A, BT, b, xt, x0=x0,
+                                                 chunk_rhs=2, **kw))
+    out["cold"] = _bres(ba_gmres_sharded_batched(A, BT, b, xt, **kw))
+    Ad, Bd, b, xt = batched_pair(seed=7)
+    A, BT = pair(Ad, Bd)
+    B = shard_bucketed_panels(_csr(Bd), P)
+    out["layouts"] = {
+        "transposed": _bres(ba_gmres_sharded_batched(A, BT, b, xt, **kw)),
+        "forward": _bres(ba_gmres_sharded_batched(A, None, b, xt,
+                                                  B_panels=B, **kw)),
+        "bf16": _bres(ba_gmres_sharded_batched(
+            A, BT, b, xt, comm_dtype=torch.bfloat16, **kw))}
+    out["single_rhs"] = _error(lambda: ba_gmres_sharded_batched(
+        A, BT, b[:, 0], maxit=4, mesh=mesh))
+    Ad, Bd, b, xt = batched_pair(seed=15)
+    A, BT = pair(Ad, Bd)
+    out["gcv_final"] = _bres(ba_gmres_sharded_batched(
+        A, BT, b, xt, tol=0.0, maxit=6, lam="gcv-final", mesh=mesh,
+        defer_histories=True))
+    out["gcv_final_in_loop"] = _error(lambda: ba_gmres_sharded_batched(
+        A, BT, b, maxit=4, lam="gcv-final", mesh=mesh))
+    Ad, Bd, b, xt = batched_pair(R=5, seed=21)
+    A, BT = pair(Ad, Bd)
+    x0 = (xt + 0.1 * np.random.default_rng(2).standard_normal(xt.shape)
+          ).astype(np.float32)
+    kw = dict(tol=0.0, lam=1e-3, mesh=mesh, x0=x0, chunk_rhs=2)
+    for kind in ("ab", "ba"):
+        part = f[kind](A, BT, b, xt, maxit=4, **kw)
+        out[f"resume {kind}"] = {
+            "full": _bres(f[kind](A, BT, b, xt, maxit=8, **kw)),
+            "resumed": _bres(f[kind](A, BT, b, xt, maxit=8,
+                                     resume_from=part, **kw))}
+    out["resume_wrong_x0"] = _error(lambda: f["ba"](
+        A, BT, b, maxit=8, tol=0.0, lam=1e-3, mesh=mesh, x0=x0 + 0.5,
+        chunk_rhs=2, resume_from=part))
+    out["resume_deferred"] = _error(lambda: f["ba"](
+        A, BT, b, maxit=8, lam=1e-3, mesh=mesh, x0=x0, chunk_rhs=2,
+        defer_histories=True, resume_from=part))
+    Ad, Bd, b, xt = banded_pair()
+    A = shard_bucketed_panels(Ad, P)
+    BT = shard_bucketed_panels(Bd.T.tocsr(), P)
+    calls0 = _calls(mesh)
+    out["windowed"] = _bres(ba_gmres_sharded_batched(
+        A, BT, b, xt, tol=0.0, maxit=6, lam=1e-3, mesh=mesh))
+    out["windowed"]["calls"] = _calls(mesh) - calls0
+    return out
+
+
+def scase_primitives(mesh, inp):
+    """The four multi-RHS primitives on windowed panels at p = 4 (the
+    tridiagonal band: L = 3, a window starting at slab -1; the upper band:
+    L = 2), R = 3; column j against the single-RHS primitives."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.parallel import shard_bucketed_panels
+    from hybrid_gmres_tpu_torch.parallel.panels import (
+        gather_window, gather_window_mat, local_matmat, local_matvec,
+        local_rmatmat_window, local_rmatvec_window,
+        scatter_window_to_full_mat, shard_view)
+
+    out = {}
+    for name, offsets in (("band", (-40, 0, 40)), ("upper", UPPER_BAND)):
+        Ad = banded(P, 13, offsets=offsets)
+        view = shard_view(shard_bucketed_panels(Ad, P), mesh.index)
+        m, n = Ad.shape
+        rng = np.random.default_rng(13)
+        X = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+        U = torch.from_numpy(rng.standard_normal((m, 3)).astype(np.float32))
+        i, nloc, mloc = mesh.index, n // P, m // P
+        X_loc, U_loc = X[i * nloc:(i + 1) * nloc], U[i * mloc:(i + 1) * mloc]
+        Xw = gather_window_mat(view, X_loc, mesh)
+        Y = local_matmat(view, Xw)
+        Zw = local_rmatmat_window(view, U_loc)
+        same = all(
+            torch.equal(Xw[:, j], gather_window(view, X_loc[:, j], mesh))
+            and torch.equal(Y[:, j], local_matvec(
+                view, gather_window(view, X_loc[:, j], mesh)))
+            and torch.equal(Zw[:, j], local_rmatvec_window(view, U_loc[:, j]))
+            for j in range(3))
+        out[name] = {
+            "windowed": view.windowed, "shifts": np.array(view.shifts),
+            "win_start": view.shards[0].win_start,
+            "window_strides": np.array(Xw.stride()),
+            "Y": mesh.all_gather(Y),
+            "Z": mesh.all_reduce(scatter_window_to_full_mat(view, Zw)),
+            "columns_equal": same}
+    return out
+
+
+def scase_fleet(mesh, inp):
+    """A 2-replica fleet of 2-rank meshes: each replica a sharded batched
+    solve of its own frames, no collective across replicas."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ba_gmres_sharded_batched, make_replica_meshes,
+        shard_bucketed_panels)
+
+    Ad, Bd, b, xt = batched_pair(R=4, seed=27)
+    reps = make_replica_meshes(2, device="cpu")
+    mine = next(i for i, r in enumerate(reps) if r.index is not None)
+    sl = slice(2 * mine, 2 * mine + 2)
+    r = ba_gmres_sharded_batched(
+        shard_bucketed_panels(_csr(Ad), 2),
+        shard_bucketed_panels(_csr(Bd.T), 2), b[:, sl], xt[:, sl], tol=0.0,
+        maxit=6, lam=1e-3, mesh=reps[mine])
+    out = _bres(r)
+    out["replica"] = mine
+    out["sizes"] = np.array([rep.size for rep in reps])
+    out["three"] = _error(lambda: make_replica_meshes(3, device="cpu"))
+    return out
+
+
+SOLVER_CASES = {name[6:]: fn for name, fn in globals().items()
+                if name.startswith("scase_")}
+
+
+def _worker(rank, port, inputs, queue, group):
     import torch
     import torch.distributed as dist
 
@@ -428,7 +830,8 @@ def _worker(rank, port, inputs, queue):
     out = {}
     try:
         mesh = make_mesh(device="cpu")
-        for name, fn in CASES.items():
+        for name, fn in {"cases": CASES,
+                         "solvers": SOLVER_CASES}[group].items():
             try:
                 out[name] = _np(fn(mesh, inputs))
             except Exception as e:  # recorded; the test of the case fails
@@ -439,9 +842,10 @@ def _worker(rank, port, inputs, queue):
         dist.destroy_process_group()
 
 
-def spawn(inputs, timeout=300):
-    """Run every case on ``P`` gloo ranks; returns each rank's results, in
-    rank order."""
+def spawn(inputs, timeout=300, group="cases"):
+    """Run every case of ``group`` (``"cases"``: :data:`CASES`,
+    ``"solvers"``: :data:`SOLVER_CASES`) on ``P`` gloo ranks; returns each
+    rank's results, in rank order."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -449,7 +853,7 @@ def spawn(inputs, timeout=300):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     queue = ctx.Queue()
-    procs = [ctx.Process(target=_worker, args=(r, port, inputs, queue))
+    procs = [ctx.Process(target=_worker, args=(r, port, inputs, queue, group))
              for r in range(P)]
     for proc in procs:
         proc.start()
