@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py             # every phase (one H100, ~10 minutes)
     python3 chip_smoke.py --kernels   # build and kernel phases only
-    python3 chip_smoke.py --sharded   # build and the two sharded phases
+    python3 chip_smoke.py --sharded   # build and the three sharded phases
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
 libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
@@ -47,7 +47,11 @@ its path families on the Morton-ordered int8 fan-beam CT operators at n=64
     solvers (K1 and K3; K1 on both forms of an adjoint pair) and the
     sharded serving batch ``ba/ab_gmres_sharded_batched`` (the twin of
     ``scripts/sharded_batched_bench.py``) through the redesigned K2 and K4
-    on each shard's forms.
+    on each shard's forms;
+  * the 2-D tiled tier on the same group as a (1, 1) mesh of
+    ``make_mesh_2d`` (its per-axis groups one-rank NCCL groups): the 2-D
+    BA/AB-GMRES, GKB and serving batch through the redesigned K1-K4 on the
+    tiles' row-packed forms, and the dense 2-D BA-GMRES.
 
 The block-ELL K1-K4 run on no path any more: they stay as the direct
 counterparts of the Pallas kernels on the same panel, checked and timed in
@@ -139,9 +143,10 @@ Phases:
      ``lsqr_batched`` R=8 (counts from the code), their column 0 against
      the single solves;
  12. sharded (after int4, at n=64 and n=128): a one-rank NCCL group;
-     BA and AB, transposed (``BT_panels``) and forward (``B_panels``)
-     layouts, on p=1 builds of ``shard_bucketed_panels`` put on the card
-     once by ``shard_view`` (bit-equal to the operators' forms), each with
+     BA and AB (n=128: MAXIT steps; n=64: 25), transposed (``BT_panels``)
+     and forward (``B_panels``) layouts, on p=1 builds of
+     ``shard_bucketed_panels`` put on the card once by ``shard_view``
+     (bit-equal to the operators' forms), each with
      K1r/K3r counts from the code, finite, held in the main path's bands to
      the single-chip solve of the same matrices and to the float64 host
      solve, BA to the gate, it/s beside the single-chip solve, the NCCL
@@ -160,13 +165,31 @@ Phases:
      (R=8 in-loop and deferred, R=16 in two chunks) and
      ``ab_gmres_sharded_batched`` (R=8 deferred), the NCCL calls of an R=1
      batch, and the float32 Gram solves of both AB-RTPs (LU failures,
-     smallest eigenvalue); at n=64 (50 steps) ``lsmr_sharded``,
+     smallest eigenvalue); at n=64 (25 steps) ``lsmr_sharded``,
      ``hybrid_lsmr_sharded``, ``lsqr_sharded`` on ``ComposedPanels(A, BT,
      "ba")`` and the forward layout for BA-RTP and the R=8 deferred batch.
      Each with its launches from the code, finite, held to the single-chip
      solve of the same matrices (GMRES-type: the main path's bands; GKB:
      6 steps to 1e-3, the minimum to GKB_MIN_RTOL) and, where one exists,
      the float64 host solve, timed in turns with it (5 each).
+ 14. sharded_2d (on phase 12's group as a (1, 1) mesh): at n=128 the
+     (1, 1) tiles of A, of B^T and the forward tiles of B
+     (``tile_bucketed_panels``, ``tile_backprojector_forward``), each
+     bit-equal to the operator's forms; ``ba_gmres_sharded_pallas_2d``
+     (transposed and forward layouts) and ``ab_gmres_sharded_pallas_2d``,
+     ``lsqr_sharded_2d``, ``hybrid_lsqr_sharded_2d`` and
+     ``ba_gmres_sharded_batched_2d`` (R=8 deferred); at n=64 (25 steps)
+     ``lsmr_sharded_2d``, ``hybrid_lsmr_sharded_2d`` and the dense
+     ``ba_gmres_sharded_2d`` on the float32 matrices.  Each as in phase 13
+     (launches from the code, finite, held to the single-chip solve and
+     the float64 host solve, BA to the gate, timed in turns), with its
+     NCCL calls per axis.  At n=128 also the int8 and int4 tiles of B at
+     (2, 2) and (4, 2), tile by tile: K1r/K3r/K2r/K4r (R=8) against their
+     plain versions, column j of K2r/K4r bit-equal to K1r/K3r, the
+     partials summed over the axis on the host and scaled against the
+     single-chip products, each tile's calls timed beside the single-chip
+     call.  The n=128 tiles are packed by a pool of worker processes
+     started after the n=128 kernel phases, beside phase 12's packing.
 
 The peak device memory of each solve path (``max_memory_allocated``, reset
 before the path) is printed after it (``memory``) and all together
@@ -182,7 +205,7 @@ Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}`` (the int4 variants as entries of their own),
 the card's name and power limit, and the result ``{"ok": true, "device":
 {...}}``.  ``--kernels`` stops after phase 3 and the int4 kernel checks (at
-both sizes) and prints neither; ``--sharded`` runs only phases 12 and 13
+both sizes) and prints neither; ``--sharded`` runs only phases 12-14
 (their float64 references computed for them) and prints neither.
 """
 
@@ -276,8 +299,14 @@ def check(cond, msg):
         fail(msg)
 
 
+# Each progress line carries ``t``, the seconds since the script started,
+# so that a run's log reads as a timeline of its phases.
+T_START = time.perf_counter()
+
+
 def say(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T_START,
+                      **fields}), flush=True)
 
 
 def time_ms(fn, reps=50):
@@ -1277,14 +1306,14 @@ def scipy_operator(csr, qmax=127):
 
 
 def host_reference(prob, ray_perm, pix_perm, b, qmax=127, kind="ba",
-                   transposed=False):
+                   transposed=False, maxit=MAXIT):
     """The same solve in float64 on the host, independent of the kernels:
     scipy CSR products with the exactly quantized operators diag(s) Q (the
     matrices the int8 panels hold; the int4 ones with ``qmax=7``) and the
     port's float64 single-RHS solver (``kind``: "ba" or "ab").
     ``transposed``: B quantized per row of B^T, as the sharded solvers'
     transposed layout holds it, instead of per pixel.  Returns the error
-    history."""
+    history (``maxit`` steps)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.ordering import reorder_pair
@@ -1296,7 +1325,7 @@ def host_reference(prob, ray_perm, pix_perm, b, qmax=127, kind="ba",
             else scipy_operator(B, qmax))
     r = {"ba": ba_gmres, "ab": ab_gmres}[kind](
         scipy_operator(A, qmax), B_op, torch.from_numpy(b.astype(np.float64)),
-        torch.from_numpy(prob.x_true[pix_perm]), tol=0.0, maxit=MAXIT,
+        torch.from_numpy(prob.x_true[pix_perm]), tol=0.0, maxit=maxit,
         lam=LAM, residual="fused")
     return r.err_hist.numpy()
 
@@ -3081,7 +3110,7 @@ def sharded_launches(kind, forward, maxit=MAXIT):
     return (maxit + b_calls, 0) if forward else (maxit, b_calls)
 
 
-def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
+def phase_sharded(P, err_ref_ba, gkb_refs, B4=None, tiles=None):
     """The sharded solvers at p=1 on a one-rank NCCL group (what runs on
     one card): ``ba_gmres_sharded_pallas`` and ``ab_gmres_sharded_pallas``
     on P's int8 CT operator in the transposed (``BT_panels``) and forward
@@ -3094,8 +3123,9 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
     to the single-chip solve of the same matrices on the card and to the
     float64 host solve (``err_ref_ba``: the main path's, BA forward), BA
     also to the gate, and is timed in turns with the single-chip solve
-    (it/s), with the NCCL calls of one solve.  The transposed layout
-    quantizes B^T per ray, the single-chip path B per pixel: its
+    (it/s), with the NCCL calls of one solve.  The solves run MAXIT steps
+    at n=128 (``B4`` given) and SHARDED_N64_STEPS at n=64.  The transposed
+    layout quantizes B^T per ray, the single-chip path B per pixel: its
     references are the single-chip solve with ``BT_op.T`` (K3 on the same
     int8 B^T) and the host solve with B^T quantized alike, and its gap to
     the production pair is printed.  ``B4``: P's int4 operator of B; when
@@ -3103,10 +3133,13 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
     shard (:func:`shard_view_checks`).  Then phase ``sharded_solvers`` on
     the same group and panels (:func:`phase_sharded_solvers`;
     ``gkb_refs``: the GKB phase's float64 histories; its n=128 part when
-    ``B4`` is given).  The group is destroyed at the end of the phase.
+    ``B4`` is given).  Then phase ``sharded_2d`` on the same group
+    (:func:`phase_sharded_2d`; ``tiles``: at n=128 the futures of its
+    tiles, :func:`start_tile_builds`).  The group is destroyed at the end
+    of the phase.
     Returns the launches of the BA transposed solve, the records, the
-    shard_view records, the sharded_solvers records and the launches of
-    their R=8 in-loop batch."""
+    shard_view records, the sharded_solvers records, the launches of their
+    R=8 in-loop batch and phase sharded_2d's result."""
     import torch
     import torch.distributed as dist
 
@@ -3141,11 +3174,12 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
         pack_s = time.perf_counter() - t1
         for built, op in ((A_p, P.A_op), (BT_p, BT_op), (B_p, P.B_op)):
             same_forms(built, op, f"n={n} p=1 shard_bucketed_panels")
-        kw = dict(tol=0.0, maxit=MAXIT, lam=LAM)
+        steps = MAXIT if B4 is not None else SHARDED_N64_STEPS
+        kw = dict(tol=0.0, maxit=steps, lam=LAM)
         single = {"ba": ba_gmres, "ab": ab_gmres}
         sharded = {"ba": ba_gmres_sharded_pallas,
                    "ab": ab_gmres_sharded_pallas}
-        host_ref = {("ba", True): err_ref_ba}
+        host_ref = {("ba", True): err_ref_ba[:steps]}
         recs, ba_t = [], None
         for kind in ("ba", "ab"):
             for layout in ("transposed", "forward"):
@@ -3170,7 +3204,7 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
                 launched = counts()
                 nccl = {c: mesh.calls[c] - calls0.get(c, 0)
                         for c in mesh.calls}
-                k1r, k3r = sharded_launches(kind, fwd)
+                k1r, k3r = sharded_launches(kind, fwd, steps)
                 want = (0, 0, 0, 0, k1r, k3r, 0, 0)
                 check(launched == want, f"{label}: {LAUNCHES} launches "
                       f"{launched}, expected {want}")
@@ -3183,7 +3217,7 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
                 check(bool(np.isfinite(err_ref).all() and
                            torch.isfinite(ref.x).all()),
                       f"{label}: the single-chip solve is not finite")
-                check(int(r.niters) == MAXIT, f"{label}: niters "
+                check(int(r.niters) == steps, f"{label}: niters "
                       f"{int(r.niters)}")
                 hist, at_min = held_to(err, err_ref, label,
                                        "the single-chip solve")
@@ -3191,7 +3225,7 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
                 if (kind, fwd) not in host_ref:
                     host_ref[kind, fwd] = host_reference(
                         P.prob, P.ray_perm, P.pix_perm, P.b_host, kind=kind,
-                        transposed=not fwd)
+                        transposed=not fwd, maxit=steps)
                 ref_s = time.perf_counter() - t2
                 hist64, at_min64 = held_to(err, host_ref[kind, fwd], label,
                                            "the float64 host solve")
@@ -3199,14 +3233,15 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
                     P.A_op, P.B_op, P.b, P.x_true, residual="fused",
                     **kw).err_hist.cpu().numpy()
                 ms_sh, ms_1 = alternating_ms((run_sharded, run_single), 5)
-                its, its1 = (MAXIT / (float(np.median(v)) / 1e3)
+                its, its1 = (steps / (float(np.median(v)) / 1e3)
                              for v in (ms_sh, ms_1))
                 if kind == "ba" and not fwd:
                     ba_t = launched
                 rec = dict(
-                    n=n, kind=kind, layout=layout, launches=launched,
-                    nccl_calls=nccl, nccl_calls_per_iter=sum(nccl.values())
-                    / MAXIT, host_syncs=syncs.count, iters_per_s=its,
+                    n=n, kind=kind, layout=layout, maxit=steps,
+                    launches=launched, nccl_calls=nccl,
+                    nccl_calls_per_iter=sum(nccl.values()) / steps,
+                    host_syncs=syncs.count, iters_per_s=its,
                     single_chip_iters_per_s=its1, ratio=its / its1,
                     solve_ms=ms_sh, single_chip_solve_ms=ms_1,
                     min_err=float(err.min()),
@@ -3232,7 +3267,11 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
         solver_recs, batched = phase_sharded_solvers(
             P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
             main=B4 is not None)
-        return ba_t, recs, views, solver_recs, batched
+        del A_p, BT_p, B_p
+        torch.cuda.empty_cache()
+        with PeakMemory(f"n={n} sharded_2d"):
+            two_d = phase_sharded_2d(P, BT_op, host_ref, gkb_refs, tiles, B4)
+        return ba_t, recs, views, solver_recs, batched, two_d
     finally:
         dist.destroy_process_group()
 
@@ -3244,9 +3283,10 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None):
 # their minima to GKB_MIN_RTOL (float32 GKB agrees with float64 over ~6
 # steps only, so no band is set from the late history).
 SHARDED_GKB_BANDS = (GKB_REF_K, 1e-3, GKB_MIN_RTOL)
-# The n=64 part of phase sharded_solvers runs this many steps (n=128:
-# MAXIT): the bands read the first 12 steps and the minimum (k = 6-9).
-SHARDED_N64_STEPS = 50
+# The n=64 parts of phases sharded, sharded_solvers and sharded_2d run this
+# many steps (n=128: MAXIT), to keep the script inside its time: the bands
+# read the first 12 steps and the minimum (k = 6-9).
+SHARDED_N64_STEPS = 25
 NCCL = ("all_reduce", "all_gather", "reduce_scatter", "shift")
 
 
@@ -3264,22 +3304,28 @@ def held_columns(err, err_ref, label, what, bands):
 
 
 def sharded_vs_single(label, mesh, run_sh, run_1, want, bands, host=None,
-                      gate=None, maxit=MAXIT):
+                      gate=None, maxit=MAXIT, phase="sharded_solvers"):
     """One sharded solve with the launch counts and the mesh's collectives
     reset before and read after (the counts checked against ``want``),
     finite and ``maxit`` steps; its error history held to the single-chip
     solve's (``run_1``; column by column for a batched one) and, given
     ``host``, column 0 to the float64 host solve; both timed in turns (5
-    each).  Returns (the record, the sharded result)."""
+    each).  ``mesh``: a mesh, or the sub-meshes of a 2-D one by axis name
+    (the collectives then counted per axis).  Returns (the record, the
+    sharded result)."""
     import torch
 
-    calls0 = dict(mesh.calls)
+    axes = mesh if isinstance(mesh, dict) else {None: mesh}
+    calls0 = {a: dict(m.calls) for a, m in axes.items()}
     reset_counts()
     with HostSyncs() as syncs:
         r = run_sh()
     torch.cuda.synchronize()
     launched = counts()
-    nccl = nccl_since(mesh, calls0)
+    nccl = {a: nccl_since(m, calls0[a]) for a, m in axes.items()}
+    per_iter = {a: sum(c.values()) / maxit for a, c in nccl.items()}
+    if None in nccl:
+        nccl, per_iter = nccl[None], per_iter[None]
     check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
           f"expected {want}")
     check(bool(torch.isfinite(r.x).all() and torch.isfinite(r.err_hist).all()
@@ -3294,7 +3340,7 @@ def sharded_vs_single(label, mesh, run_sh, run_1, want, bands, host=None,
     held = held_columns if err.ndim == 2 else held_to
     hist, at_min = held(err, err_ref, label, "the single-chip solve", bands)
     rec = dict(label=label, maxit=maxit, launches=launched, nccl_calls=nccl,
-               nccl_calls_per_iter=sum(nccl.values()) / maxit,
+               nccl_calls_per_iter=per_iter,
                host_syncs=syncs.count, min_err=np.min(err, axis=0).tolist(),
                single_chip_min_err=np.min(err_ref, axis=0).tolist(),
                hist_rel_diff=hist, min_rel_diff=at_min)
@@ -3310,7 +3356,7 @@ def sharded_vs_single(label, mesh, run_sh, run_1, want, bands, host=None,
     its, its1 = (maxit / (float(np.median(v)) / 1e3) for v in (ms_sh, ms_1))
     rec.update(iters_per_s=its, single_chip_iters_per_s=its1,
                ratio=its / its1, solve_ms=ms_sh, single_chip_solve_ms=ms_1)
-    say("sharded_solvers", **rec)
+    say(phase, **rec)
     return rec, r
 
 
@@ -3359,7 +3405,8 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
     (n=64) ``lsmr`` and ``hybrid_lsmr``, ``lsqr`` on
     ``ComposedPanels(A, BT, "ba")`` against the single-chip ``lsqr`` on the
     product operator, and the forward layout (``B_panels``) for BA-RTP and
-    the R=8 deferred batch, each at SHARDED_N64_STEPS steps.  Each through :func:`sharded_vs_single`, its
+    the R=8 deferred batch, each at SHARDED_N64_STEPS steps.  Each through
+    :func:`sharded_vs_single`, its
     launches worked out from the code; ``host_ref``: phase ``sharded``'s
     float64 GMRES histories by (kind, forward); ``gkb_refs``: the GKB
     phase's float64 histories by solver.  Returns (the records, the
@@ -3520,11 +3567,11 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
 
 
 def same_forms(view, op, label):
-    """A single-shard view holds the operator's forms and row scales, bit
-    for bit."""
+    """A single-shard (or single-tile) view holds the operator's forms and
+    row scales, bit for bit."""
     import torch
 
-    sh = view.shards[0]
+    sh = view.shards[0] if hasattr(view, "shards") else view.tiles[0]
     for fa, fb in ((sh.fwd_rows, op.fwd_rows), (sh.adj_rows, op.adj_rows)):
         check((fa.shape, fa.lanes, fa.live) == (fb.shape, fb.lanes, fb.live)
               and all(torch.equal(getattr(fa, f), getattr(fb, f))
@@ -3660,6 +3707,312 @@ def shard_view_checks(P, B4, R=8):
     return out
 
 
+# Phase sharded_2d: the grids of the tile checks, and the worker processes
+# that pack the n=128 tiles while phase sharded packs its panels (a build of
+# n=128 A takes ~20 s on the host, of B ~10 s: seven builds in the
+# foreground would take the phase past its 90 s).
+TILE_GRIDS = ((2, 2), (4, 2))
+TILE_WORKERS = 2
+
+
+def build_tiles(name, csr, grid, kw):
+    """One job of the tile pool (a worker process): ``parallel.<name>(csr,
+    *grid, **kw)`` on the host, pickled with its build seconds."""
+    import pickle
+
+    import torch
+
+    import hybrid_gmres_tpu_torch.parallel as par
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    tiles = getattr(par, name)(csr, *grid, **kw)
+    return pickle.dumps((tiles, time.perf_counter() - t0))
+
+
+def start_tile_builds(P):
+    """A pool of TILE_WORKERS spawned processes and the futures of phase
+    sharded_2d's n=128 tiles: the (1, 1) tiles of A, B^T and the forward
+    tiles of B (the operators' packing: int8, their blocks), and the int8
+    and int4 tiles of B on TILE_GRIDS.  Started after the n=128 kernel
+    phases (whose times the pool would share the host with) and just
+    before phase sharded, so that the packing runs beside that phase's own
+    packing; the caller shuts the pool down."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from hybrid_gmres_tpu_torch.problems.ct import (BLOCK_A, BLOCK_B,
+                                                    N_BUCKETS)
+
+    pack = dict(dtype=np.int8, n_buckets=N_BUCKETS)
+    jobs = {"A": ("tile_bucketed_panels", P.A_csr, (1, 1),
+                  dict(pack, block=BLOCK_A)),
+            "BT": ("tile_bucketed_panels", P.B_csr.T.tocsr(), (1, 1),
+                   pack),
+            "B": ("tile_backprojector_forward", P.B_csr, (1, 1),
+                  dict(pack, block=BLOCK_B))}
+    for dtype in ("int8", "int4"):
+        for grid in TILE_GRIDS:
+            jobs[dtype, grid] = ("tile_bucketed_panels", P.B_csr, grid,
+                                 dict(pack, block=BLOCK_B, dtype=np.int8
+                                      if dtype == "int8" else "int4"))
+    pool = ProcessPoolExecutor(TILE_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return pool, {k: pool.submit(build_tiles, *job)
+                      for k, job in jobs.items()}
+    except BaseException:
+        pool.shutdown(wait=True, cancel_futures=True)
+        raise
+
+
+def tiles_of(future):
+    """(tiles, build seconds) of a pool job; waits for it."""
+    import pickle
+
+    return pickle.loads(future.result(timeout=600))
+
+
+def phase_sharded_2d(P, BT_op, host_ref, gkb_refs, tiles=None, B4=None):
+    """The 2-D tier on the one-rank group as a (1, 1) mesh
+    (``make_mesh_2d``: both per-axis groups are that group).  ``tiles``
+    (n=128): the pool's futures (:func:`start_tile_builds`); the (1, 1)
+    tiles of A, B^T and B put on the card once by ``tile_view`` and held
+    bit-equal to the operators' forms; BA (transposed and forward) and AB,
+    ``lsqr`` and ``hybrid_lsqr``, the R=8 deferred serving batch, then
+    the tile checks of B (:func:`tile_checks`).  Otherwise (n=64,
+    SHARDED_N64_STEPS steps): ``lsmr`` and ``hybrid_lsmr`` on a (1, 1)
+    tile of A packed here, and the dense BA on the float32 matrices.
+    Each through :func:`sharded_vs_single` with its collectives counted per
+    axis, against the single-chip solve of the same matrices and
+    ``host_ref`` (phase sharded's float64 GMRES histories by (kind,
+    forward)) or ``gkb_refs``.  Returns (the records, the tile-check
+    records, the launches of the BA transposed solve and of the batch)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.linear_operator import DenseOperator
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_pallas_2d, ba_gmres_sharded_2d,
+        ba_gmres_sharded_batched_2d, ba_gmres_sharded_pallas_2d,
+        hybrid_lsmr_sharded_2d, hybrid_lsqr_sharded_2d, lsmr_sharded_2d,
+        lsqr_sharded_2d, make_mesh_2d, shard_problem_2d,
+        tile_bucketed_panels, tile_view)
+    from hybrid_gmres_tpu_torch.problems.ct import BLOCK_A, N_BUCKETS
+    from hybrid_gmres_tpu_torch.solvers.batched import ba_gmres_batched
+    from hybrid_gmres_tpu_torch.solvers.gmres import ab_gmres, ba_gmres
+
+    n, t0 = P.n, time.perf_counter()
+    main = tiles is not None
+    steps = MAXIT if main else SHARDED_N64_STEPS
+    mesh = make_mesh_2d((1, 1))
+    axes = {a: mesh.axis(a) for a in mesh.axis_names}
+    recs, out = [], {}
+    gm = dict(tol=0.0, maxit=steps, lam=LAM)
+
+    def case(label, run_sh, run_1, want, bands=None, host=None, gate=None):
+        rec, r = sharded_vs_single(
+            f"n={n} {label} (1,1)", axes, run_sh, run_1,
+            (0, 0, 0, 0) + tuple(want), bands, host=host, gate=gate,
+            maxit=steps, phase="sharded_2d")
+        recs.append(rec)
+        return rec
+
+    def gkb_case(name, A_t):
+        fn2 = dict(lsqr=lsqr_sharded_2d, hybrid_lsqr=hybrid_lsqr_sharded_2d,
+                   lsmr=lsmr_sharded_2d,
+                   hybrid_lsmr=hybrid_lsmr_sharded_2d)[name]
+        fn, kw = gkb_solver(name)
+        kw = dict(kw, tol=0.0, maxit=steps)
+        case(f"{name}_sharded_2d",
+             lambda: fn2(A_t, P.b, P.x_true, mesh=mesh, **kw),
+             lambda: fn(P.A_op, P.b, P.x_true, **kw),
+             gkb_launches(name, steps) + (0, 0), SHARDED_GKB_BANDS,
+             host=gkb_refs.get(name))
+
+    if main:
+        t1 = time.perf_counter()
+        built = {k: tiles_of(f) for k, f in tiles.items()}
+        out["tiles_wait_s"] = time.perf_counter() - t1
+        out["build_s"] = {str(k): v[1] for k, v in built.items()}
+        A_t, BT_t, B_t = (tile_view(built[k][0], 0, 0, mesh.device)
+                          for k in ("A", "BT", "B"))
+        torch.cuda.synchronize()
+        for view, op, what in ((A_t, P.A_op, "A"), (BT_t, BT_op, "B^T"),
+                               (B_t, P.B_op, "B forward")):
+            same_forms(view, op, f"n={n} (1,1) tiles of {what}")
+        out["tiles_mb"] = dict(A=A_t.nbytes / 1e6, BT=BT_t.nbytes / 1e6,
+                               B=B_t.nbytes / 1e6)
+        for kind, fwd in (("ba", False), ("ba", True), ("ab", False)):
+            fn = dict(ba=ba_gmres_sharded_pallas_2d,
+                      ab=ab_gmres_sharded_pallas_2d)[kind]
+            single = dict(ba=ba_gmres, ab=ab_gmres)[kind]
+            B_ref = P.B_op if fwd else BT_op.T
+            rec = case(
+                f"{kind}_gmres_sharded_pallas_2d "
+                + ("forward" if fwd else "transposed"),
+                lambda: fn(A_t, None if fwd else BT_t, P.b, P.x_true,
+                           mesh=mesh, B_tiles=B_t if fwd else None, **gm),
+                lambda: single(P.A_op, B_ref, P.b, P.x_true,
+                               residual="fused", **gm),
+                sharded_launches(kind, fwd, steps) + (0, 0),
+                host=host_ref[kind, fwd],
+                gate=GATES[n] if kind == "ba" else None)
+            if (kind, fwd) == ("ba", False):
+                out["ba_launches"] = rec["launches"]
+        for name in ("lsqr", "hybrid_lsqr"):
+            gkb_case(name, A_t)
+        b8 = torch.as_tensor(noisy_sinograms(P, range(8)), device=P.device)
+        rec = case(
+            "ba_gmres_sharded_batched_2d R=8 deferred",
+            lambda: ba_gmres_sharded_batched_2d(
+                A_t, BT_t, b8, P.x_true, mesh=mesh, defer_histories=True,
+                **gm),
+            lambda: ba_gmres_batched(P.A_op, BT_op.T, b8, P.x_true,
+                                     defer_histories=True, **gm),
+            (0, 0, steps, steps + 1), host=host_ref["ba", False],
+            gate=SERVING_GATES[n])
+        out["batched_launches"] = rec["launches"]
+        del A_t, BT_t, B_t
+        checks = tile_checks(P, B4, {k: v for k, v in built.items()
+                                     if k not in ("A", "BT", "B")})
+    else:
+        t1 = time.perf_counter()
+        A_t = tile_view(tile_bucketed_panels(
+            P.A_csr, 1, 1, block=BLOCK_A, dtype=np.int8,
+            n_buckets=N_BUCKETS), 0, 0, mesh.device)
+        out["build_s"] = {"A": time.perf_counter() - t1}
+        same_forms(A_t, P.A_op, f"n={n} (1,1) tiles of A")
+        for name in ("lsmr", "hybrid_lsmr"):
+            gkb_case(name, A_t)
+        del A_t
+        # the dense blocks of the float32 matrices the panels were packed
+        # from: at (1, 1) each block is a whole matrix (two ~530 MB arrays)
+        A2, B2, b2 = shard_problem_2d(
+            torch.from_numpy(P.A_csr.toarray()),
+            torch.from_numpy(P.B_csr.toarray()), P.b, mesh)
+        case("ba_gmres_sharded_2d dense",
+             lambda: ba_gmres_sharded_2d(A2, B2, b2, P.x_true, mesh=mesh,
+                                         **gm),
+             lambda: ba_gmres(DenseOperator(A2), DenseOperator(B2), P.b,
+                              P.x_true, residual="fused", **gm),
+             (0,) * 4, gate=GATES[n])
+        del A2, B2
+        checks = None
+    out["seconds"] = time.perf_counter() - t0
+    say("sharded_2d_done", n=n, **out)
+    return recs, checks, out.get("ba_launches"), out.get("batched_launches")
+
+
+def tile_checks(P, B4, built, R=8):
+    """The int8 (``P.B_op``) and int4 (``B4``) tiles of B on TILE_GRIDS
+    (``built``: (dtype, grid) -> (tiles, build seconds)), one tile at a time
+    on the card through ``tile_view``: each tile's K1r/K3r (``tile_matvec``,
+    ``tile_rmatvec`` with the scales gathered beside u) and K2r/K4r at R
+    columns in the solvers' layout against their plain versions, column j
+    of K2r/K4r bit-equal to K1r/K3r on column j; the partials summed over
+    the axis on the host and the forward sums scaled by the row scales,
+    against the single-chip ``matvec``/``rmatvec``/``matmat``/``rmatmat``;
+    each tile's four calls timed (µs, CUDA events) and summed beside the
+    single-chip calls.  Returns a record per build."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        row_matmat_plain, row_matvec_plain, row_rmatmat_plain,
+        row_rmatvec_plain)
+    from hybrid_gmres_tpu_torch.parallel.panels2d import (
+        tile_matmat, tile_matvec, tile_rmatmat, tile_rmatvec, tile_view)
+
+    rng = np.random.default_rng(9)
+    m, n = P.B_op.shape
+    dev = P.device
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=dev)
+    u = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
+                        device=dev)
+    X = torch.as_tensor(rng.standard_normal((R, n)), dtype=torch.float32,
+                        device=dev).T
+    U = torch.as_tensor(rng.standard_normal((R, m)), dtype=torch.float32,
+                        device=dev).T
+    out = []
+    for dtype, op in (("int8", P.B_op), ("int4", B4)):
+        want = (op.matvec(x), op.rmatvec(u), op.matmat(X), op.rmatmat(U))
+        single_us = dict(zip(("k1r", "k3r", "k2r", "k4r"), (
+            time_ms(lambda: op.matvec(x), reps=20) * 1e3,
+            time_ms(lambda: op.rmatvec(u), reps=20) * 1e3,
+            time_ms(lambda: op.matmat(X), reps=20) * 1e3,
+            time_ms(lambda: op.rmatmat(U), reps=20) * 1e3)))
+        for grid in TILE_GRIDS:
+            tp, build_s = built[dtype, grid]
+            pr, pc = grid
+            mloc, nloc = m // pr, n // pc
+            got = [torch.zeros_like(w) for w in want]
+            worst, equal = 0.0, True
+            tile_us = dict(k1r=[], k3r=[], k2r=[], k4r=[])
+            scales = []
+            for i in range(pr):
+                for j in range(pc):
+                    view = tile_view(tp, i, j, dev)
+                    t = view.tiles[0]
+                    s = t.row_scale
+                    if j == 0:
+                        scales.append(s)
+                    xs, us = x[j * nloc:(j + 1) * nloc], u[i * mloc:
+                                                            (i + 1) * mloc]
+                    Xs = X[j * nloc:(j + 1) * nloc]
+                    Us = U[i * mloc:(i + 1) * mloc]
+                    calls = dict(
+                        k1r=lambda: tile_matvec(view, xs),
+                        k3r=lambda: tile_rmatvec(view, us, s),
+                        k2r=lambda: tile_matmat(view, Xs),
+                        k4r=lambda: tile_rmatmat(view, Us, s))
+                    parts = [calls[k]() for k in ("k1r", "k3r", "k2r",
+                                                  "k4r")]
+                    plains = (row_matvec_plain(t.fwd_rows, xs),
+                              row_rmatvec_plain(t.adj_rows, us, s),
+                              row_matmat_plain(t.fwd_rows, Xs),
+                              row_rmatmat_plain(t.adj_rows, Us, s))
+                    worst = max([worst] + [rel_err(a, b) for a, b in
+                                           zip(parts, plains)])
+                    for c in range(R):
+                        equal &= bool(
+                            torch.equal(parts[2][:, c], tile_matvec(
+                                view, Xs[:, c].contiguous()))
+                            and torch.equal(parts[3][:, c], tile_rmatvec(
+                                view, Us[:, c].contiguous(), s)))
+                    got[0][i * mloc:(i + 1) * mloc] += parts[0]
+                    got[1][j * nloc:(j + 1) * nloc] += parts[1]
+                    got[2][i * mloc:(i + 1) * mloc] += parts[2]
+                    got[3][j * nloc:(j + 1) * nloc] += parts[3]
+                    for k, fn in calls.items():
+                        tile_us[k].append(time_ms(fn, reps=20) * 1e3)
+                    del view, t, plains, parts
+            s_all = torch.cat(scales)
+            got[0] *= s_all
+            got[2] *= s_all[:, None]
+            torch.cuda.synchronize()
+            gaps = [rel_err(g, w) for g, w in zip(got, want)]
+            label = f"n={P.n} B {dtype} tiles {pr}x{pc}"
+            check(worst <= KERNEL_RTOL, f"{label}: a tile's kernel vs plain "
+                  f"{worst:.3e}")
+            check(equal, f"{label}: a column of K2r/K4r differs from K1r/K3r "
+                  "on that column")
+            check(max(gaps) <= KERNEL_RTOL, f"{label}: the summed partials "
+                  f"against the single-chip products {gaps}")
+            rec = dict(n=P.n, dtype=dtype, grid=list(grid), R=R,
+                       build_s=build_s, forms_mb=tp.nbytes / 1e6,
+                       tile_vs_plain_max_rel=worst, columns_bit_equal=equal,
+                       sums_vs_single_chip=dict(zip(
+                           ("matvec", "rmatvec", "matmat", "rmatmat"), gaps)),
+                       tile_us=tile_us,
+                       tile_us_sum={k: sum(v) for k, v in tile_us.items()},
+                       single_chip_us=single_us)
+            say("tile_checks", **rec)
+            out.append(rec)
+            del tp
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_record(name, source, replaces, launches, path_recs, other_recs,
                   superseded_by=None, **extra):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
@@ -3705,11 +4058,15 @@ def main():
     if "--sharded" in sys.argv[1:]:      # a short call: the sharded phases
         for n in (64, 128):
             P = make_problem(n)
+            pool, tiles = start_tile_builds(P) if n == 128 else (None, None)
             ref0 = host_reference(P.prob, P.ray_perm, P.pix_perm, P.b_host)
             refs = {name: host_reference_gkb(P, name, P.b_host)
                     for name in (GKB_SINGLE if n == 64 else ("lsqr",))}
             phase_sharded(P, ref0, refs,
-                          int4_operators(P).B_op if n == 128 else None)
+                          int4_operators(P).B_op if n == 128 else None,
+                          tiles)
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
             del P
             torch.cuda.empty_cache()
         say("stopped", after="sharded")
@@ -3752,8 +4109,8 @@ def main():
     del P4
     say("int4_done", n=64, seconds=time.perf_counter() - t0)
     with PeakMemory("n=64 sharded"):
-        sharded_launches_64, sharded_64, _, solvers_64, _ = phase_sharded(
-            P, ref0, {k: v[2] for k, v in gkb.items()})
+        sharded_launches_64, sharded_64, _, solvers_64, _, two_d_64 = \
+            phase_sharded(P, ref0, {k: v[2] for k, v in gkb.items()})
     host = (P.prob, P.ray_perm, P.pix_perm)
     del P
     torch.cuda.empty_cache()
@@ -3778,15 +4135,23 @@ def main():
     P4 = int4_operators(P)
     k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
     say("int4_done", n=128, seconds=time.perf_counter() - t0)
+    # phase sharded_2d's tiles, packed by worker processes from here on
+    pool, tiles = start_tile_builds(P)
     with PeakMemory("n=128 sharded"):
-        _, sharded_128, views, solvers_128, batched_128 = phase_sharded(
-            P, ref0, {k: v[2] for k, v in gkb.items()}, P4.B_op)
+        _, sharded_128, views, solvers_128, batched_128, two_d_128 = \
+            phase_sharded(P, ref0, {k: v[2] for k, v in gkb.items()},
+                          P4.B_op, tiles)
+    pool.shutdown(wait=True, cancel_futures=True)
     del P4
     say("memory_peaks", card=card, **MEMORY)
     say("phantom2d_gpu_launches", launches=phantom_launches)
     say("sharded_summary", card=card, runs=sharded_64 + sharded_128,
         shard_view=views)
     say("sharded_solvers_summary", card=card, runs=solvers_64 + solvers_128)
+    say("sharded_2d_summary", card=card, runs=two_d_64[0] + two_d_128[0],
+        tile_checks=two_d_128[1])
+    _, _, ba_2d, batched_2d = two_d_128
+    two_d = "n=128 (1,1) mesh: parallel/panels2d.py:"
 
     csrc = "hybrid_gmres_tpu_torch/csrc/"
     pallas = "hybrid_gmres_tpu/ops/spmv_pallas.py"
@@ -3796,21 +4161,33 @@ def main():
     print(json.dumps({"kernels": [
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
                       main_launches[4], k1r_64, k1r_128,
-                      sharded_launches=sharded_launches_64[4]),
+                      sharded_launches=sharded_launches_64[4],
+                      sharded_2d_launches=ba_2d[4],
+                      sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
+                      + "tile_matvec"),
         kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
                       serving_launches[6], k2r_64,
                       k2r_128 + lmm_64 + lmm_128,
                       sharded_launches=batched_128[6],
                       sharded_path="ba_gmres_sharded_batched n=128 R=8 "
-                      "in-loop (parallel/panels.py:local_matmat)"),
+                      "in-loop (parallel/panels.py:local_matmat)",
+                      sharded_2d_launches=batched_2d[6],
+                      sharded_2d_path="ba_gmres_sharded_batched_2d R=8 "
+                      "deferred " + two_d + "tile_matmat"),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
                       lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128,
-                      sharded_launches=sharded_launches_64[5]),
+                      sharded_launches=sharded_launches_64[5],
+                      sharded_2d_launches=ba_2d[5],
+                      sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
+                      + "tile_rmatvec"),
         kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",
                       lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128,
                       sharded_launches=batched_128[7],
                       sharded_path="ba_gmres_sharded_batched n=128 R=8 "
-                      "in-loop (parallel/panels.py:local_rmatmat_window)"),
+                      "in-loop (parallel/panels.py:local_rmatmat_window)",
+                      sharded_2d_launches=batched_2d[7],
+                      sharded_2d_path="ba_gmres_sharded_batched_2d R=8 "
+                      "deferred " + two_d + "tile_rmatmat"),
         # the int4 variants (nibble-packed forms), each with the launches
         # of its n=64 int4 path: the single solve (K1), lsqr (K3), the
         # serving batch (K2), lsqr_batched (K4)

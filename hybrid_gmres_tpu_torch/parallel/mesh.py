@@ -18,6 +18,10 @@ The collectives of the JAX schedules map onto ``torch.distributed``:
 
 NCCL (the default, on ``cuda:<local rank>``) takes one process per card;
 ``device="cpu"`` runs the same schedules on gloo, as the CPU tests do.
+
+A 2-D mesh (:func:`make_mesh_2d`) also carries its per-axis groups,
+:meth:`Mesh.axis`: ``psum(., "rows")`` over the ranks that share a column
+coordinate, ``psum(., "cols")`` over those that share a row coordinate.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ class Mesh:
     shape: tuple
     axis_names: tuple
     calls: Counter = field(default_factory=Counter)
+    axes: dict = field(default_factory=dict)
 
     @property
     def size(self) -> int:
@@ -74,6 +79,17 @@ class Mesh:
             out.append(i % extent)
             i //= extent
         return tuple(reversed(out))
+
+    def axis(self, name: str) -> "Mesh":
+        """The 1-D sub-mesh of this process along axis ``name`` of a 2-D
+        mesh: the ranks that share this process's other coordinate, in
+        mesh order, so that its ``index`` is this process's coordinate on
+        the axis.  It has its own ``calls``: the collectives issued on it
+        are counted there, not in this mesh's."""
+        if name not in self.axes:
+            raise ValueError(f"no axis {name!r}: this mesh has "
+                             f"{list(self.axes) or 'no per-axis groups'}")
+        return self.axes[name]
 
     def _member(self, name):
         self.calls[name] += 1
@@ -189,14 +205,29 @@ def make_mesh(n_devices: int | None = None, axis_name: str = "rows",
 def make_mesh_2d(shape: tuple[int, int], axis_names=("rows", "cols"),
                  device="cuda") -> Mesh:
     """2-D mesh (rows x cols) over the first ``rows * cols`` ranks, in
-    row-major order: the group of all of them and this process's
-    ``coords``.  The per-axis groups come with the 2-D solvers."""
+    row-major order (rank ``i * cols + j`` at coordinates ``(i, j)``): the
+    group of all of them, this process's ``coords``, and its per-axis
+    sub-meshes (:meth:`Mesh.axis`).  Every process creates every group, in
+    one order (the column groups of axis 0, then the row groups of axis
+    1), as ``torch.distributed.new_group`` requires; a process outside the
+    mesh gets none of the sub-meshes."""
     _require_initialized()
-    need = shape[0] * shape[1]
+    pr, pc = (int(v) for v in shape)
+    need = pr * pc
     if need > dist.get_world_size():
         raise ValueError(f"requested {need} devices, have "
                          f"{dist.get_world_size()}")
-    return _make(list(range(need)), shape, axis_names, device)
+    mesh = _make(list(range(need)), (pr, pc), axis_names, device)
+    groups = {axis_names[0]: [[i * pc + j for i in range(pr)]
+                              for j in range(pc)],
+              axis_names[1]: [[i * pc + j for j in range(pc)]
+                              for i in range(pr)]}
+    for name, rank_lists in groups.items():
+        for ranks in rank_lists:
+            sub = _make(ranks, (len(ranks),), (name,), device)
+            if sub.index is not None:
+                mesh.axes[name] = sub
+    return mesh
 
 
 def make_replica_meshes(n_replicas: int, axis_name: str = "rows",

@@ -68,15 +68,25 @@ __all__ = [
 ]
 
 
-def _mesh_reductions(mesh: Mesh) -> Reductions:
-    """The batched cores' sums over a 1-D mesh: every space is row-sharded
-    over the same ranks, so each is one all_reduce (the R column norms of
-    a call ride one collective)."""
+def _col_norms(mesh: Mesh):
+    """Column norms of batch-first arrays summed over ``mesh`` (the R
+    column norms of a call ride one collective)."""
     def norm(X):
         return torch.sqrt(mesh.all_reduce((X * X).sum(dim=-1)))
+    return norm
 
-    return Reductions(coeff=mesh.all_reduce, norm_m=norm, norm_sp=norm,
-                      norm_n=norm)
+
+def _mesh_reductions(m_mesh: Mesh, n_mesh: Mesh | None = None,
+                     basis: Mesh | None = None) -> Reductions:
+    """The batched cores' sums: m-space over ``m_mesh``, n-space over
+    ``n_mesh``, the Krylov basis's coefficients and norms over ``basis``.
+    On a 1-D mesh every space is row-sharded over the same ranks (the
+    defaults), so each is one all_reduce over it; on the 2-D tier they are
+    the per-axis sub-meshes."""
+    n_mesh = m_mesh if n_mesh is None else n_mesh
+    basis = m_mesh if basis is None else basis
+    return Reductions(coeff=basis.all_reduce, norm_m=_col_norms(m_mesh),
+                      norm_sp=_col_norms(basis), norm_n=_col_norms(n_mesh))
 
 
 def _make_A_mm(A_loc, mesh, dtype, comm_dtype):
@@ -139,9 +149,27 @@ def _sharded_batched(kind, A_panels, BT_panels, b, x_true, tol, maxit, lam,
                      gcv_grid, mesh, axis, x0, B_panels, comm_dtype,
                      chunk_rhs, defer_histories, resume_from):
     mesh = _default_mesh(mesh, axis)
-    maxit = int(maxit)
     p, m, n = _validate(A_panels, BT_panels, mesh, B_panels)
-    dev, my = mesh.device, mesh.index
+    b_forward = B_panels is not None
+    A_loc, B_loc = _on_device(mesh, A_panels,
+                              B_panels if b_forward else BT_panels)
+    b = torch.as_tensor(b, device=mesh.device)
+    A_mm = _make_A_mm(A_loc, mesh, b.dtype, comm_dtype)
+    B_mm = _make_B_mm(B_loc, b_forward, mesh, b.dtype, comm_dtype)
+    return _run_batched(kind, A_mm, B_mm, _mesh_reductions(mesh), mesh,
+                        mesh, m, n, b, x_true, tol, maxit, lam, gcv_grid, x0,
+                        chunk_rhs, defer_histories, resume_from)
+
+
+def _run_batched(kind, A_mm, B_mm, red, m_mesh, n_mesh, m, n, b, x_true, tol,
+                 maxit, lam, gcv_grid, x0, chunk_rhs, defer_histories,
+                 resume_from):
+    """The chunks of a sharded multi-RHS solve on this rank, for every
+    tier: ``b`` sliced along ``m_mesh`` (its rows), ``x_true``/``x0`` and
+    the checkpoint's ``x`` along ``n_mesh``, each chunk through
+    :func:`_mesh_batched_core`, its ``x`` gathered over ``n_mesh``."""
+    maxit = int(maxit)
+    dev = m_mesh.device
     b = torch.as_tensor(b, device=dev)
     if b.ndim != 2:
         raise ValueError(f"{kind}_gmres_sharded_batched expects b of shape "
@@ -149,8 +177,9 @@ def _sharded_batched(kind, A_panels, BT_panels, b, x_true, tol, maxit, lam,
                          "single RHS")
     dtype, R = b.dtype, b.shape[1]
     like = dict(dtype=dtype, device=dev)
-    mloc, nloc = m // p, n // p
-    rows = slice(my * nloc, (my + 1) * nloc)
+    mloc, nloc = m // m_mesh.size, n // n_mesh.size
+    rows_m = slice(m_mesh.index * mloc, (m_mesh.index + 1) * mloc)
+    rows = slice(n_mesh.index * nloc, (n_mesh.index + 1) * nloc)
     xt = (torch.full((n, R), float("nan"), **like) if x_true is None
           else torch.as_tensor(x_true, **like).reshape(n, -1).expand(n, R))
     if x0 is not None:
@@ -160,12 +189,6 @@ def _sharded_batched(kind, A_panels, BT_panels, b, x_true, tol, maxit, lam,
     project_solve, select_lam = _lam_solvers(
         lam, n if kind == "ba" else m, gcv_grid, defer_histories)
     fp = resume_fingerprint(x0, lam, device=dev)
-    b_forward = B_panels is not None
-    A_loc, B_loc = _on_device(mesh, A_panels,
-                              B_panels if b_forward else BT_panels)
-    A_mm = _make_A_mm(A_loc, mesh, dtype, comm_dtype)
-    B_mm = _make_B_mm(B_loc, b_forward, mesh, dtype, comm_dtype)
-    red = _mesh_reductions(mesh)
 
     parts = []
     for sl in _chunk_slices(R, chunk_rhs):
@@ -174,10 +197,10 @@ def _sharded_batched(kind, A_panels, BT_panels, b, x_true, tol, maxit, lam,
             rs = _slice_result(resume_from, sl)
             rs = rs._replace(x=rs.x[rows])
         r = _mesh_batched_core(
-            kind, A_mm, B_mm, red, b[my * mloc:(my + 1) * mloc, sl],
-            xt[rows, sl], None if x0 is None else x0[rows, sl],
-            project_solve, select_lam, maxit, tol, defer_histories, rs)
-        parts.append(r._replace(x=mesh.all_gather(r.x)))
+            kind, A_mm, B_mm, red, b[rows_m, sl], xt[rows, sl],
+            None if x0 is None else x0[rows, sl], project_solve, select_lam,
+            maxit, tol, defer_histories, rs)
+        parts.append(r._replace(x=n_mesh.all_gather(r.x)))
     res = _concat_results(parts)
     if x_true is None:
         res = res._replace(err_hist=torch.full_like(res.err_hist,

@@ -46,7 +46,11 @@ from hybrid_gmres_tpu_torch.parallel.panels import (
     shard_view,
 )
 from hybrid_gmres_tpu_torch.parallel.sharded import _default_mesh, pnorm
-from hybrid_gmres_tpu_torch.solvers.common import GKBResult, GKBState
+from hybrid_gmres_tpu_torch.solvers.common import (
+    GKBResult,
+    GKBState,
+    SplitSum,
+)
 from hybrid_gmres_tpu_torch.solvers.lsmr import (
     _hybrid_lsmr_core,
     _lsmr_core,
@@ -150,26 +154,37 @@ def _local_ops(A, mesh, dtype) -> _Local:
 
 
 class _Vectors:
-    """This rank's slabs of the full ``b``, ``x_true`` and ``x0`` on the
-    mesh's device (``x0`` also whole, for the fingerprint), the norms of
-    ``b`` and ``x_true``, and the sharded relative error."""
+    """This rank's slabs of the full ``b`` (along ``m_mesh``), ``x_true``
+    and ``x0`` (along ``n_mesh``; ``x0`` also whole, for the fingerprint) on
+    the mesh's device, the sums over each space, the norms of ``b`` and
+    ``x_true``, and the sharded relative error.  The 1-D tier passes its
+    mesh for both spaces; the 2-D tier its "rows" and "cols" sub-meshes."""
 
-    def __init__(self, b, x_true, x0, mesh, m, n):
-        p, i, dev = mesh.size, mesh.index, mesh.device
-        self.mesh = mesh
+    def __init__(self, b, x_true, x0, m_mesh, n_mesh, m, n):
+        dev = m_mesh.device
+        self.m_mesh, self.n_mesh, self.device = m_mesh, n_mesh, dev
         b = torch.as_tensor(b, device=dev)
         self.dtype = b.dtype
         like = dict(dtype=b.dtype, device=dev)
-        self.rows_n = slice(i * (n // p), (i + 1) * (n // p))
-        self.b_loc = b[i * (m // p):(i + 1) * (m // p)]
+        mloc, nloc = m // m_mesh.size, n // n_mesh.size
+        self.rows_n = slice(n_mesh.index * nloc, (n_mesh.index + 1) * nloc)
+        self.b_loc = b[m_mesh.index * mloc:(m_mesh.index + 1) * mloc]
         self.have_xt = x_true is not None
         xt = (torch.zeros(n, **like) if x_true is None
               else torch.as_tensor(x_true, **like))
         self.xt_loc = xt[self.rows_n]
         self.x0 = None if x0 is None else torch.as_tensor(x0, **like)
         self.x0_loc = None if x0 is None else self.x0[self.rows_n]
-        self.b_norm = pnorm(mesh, self.b_loc)
-        self.xt_norm = pnorm(mesh, self.xt_loc)
+        self.sum_m, self.sum_n = m_mesh.all_reduce, n_mesh.all_reduce
+        self.b_norm = pnorm(m_mesh, self.b_loc)
+        self.xt_norm = pnorm(n_mesh, self.xt_loc)
+
+    def sum_aug(self, mloc):
+        """The sum over the augmented u-space ``[m-slab; n-slab]`` of the
+        hybrid LSQR: one collective on one mesh, two on a 2-D one."""
+        if self.m_mesh is self.n_mesh:
+            return self.sum_m
+        return SplitSum(mloc, self.sum_m, self.sum_n)
 
     def at(self, d_loc):
         """The iterate of the correction ``d_loc`` (``x0 + d``)."""
@@ -178,15 +193,95 @@ class _Vectors:
     def error_fn(self, d_loc):
         """The relative error of the iterate ``x0 + d`` (one all_reduce;
         made without ``x_true`` too, so every rank issues it alike)."""
-        return pnorm(self.mesh, self.at(d_loc) - self.xt_loc) / self.xt_norm
+        return pnorm(self.n_mesh, self.at(d_loc) - self.xt_loc) / \
+            self.xt_norm
 
     def result(self, x_loc, err_hist, res_hist, niters, **extra):
         """The replicated result: ``x`` gathered, the error history NaN
         without ``x_true``."""
         if not self.have_xt:
             err_hist = torch.full_like(err_hist, float("nan"))
-        return GKBResult(x=self.mesh.all_gather(x_loc), err_hist=err_hist,
+        return GKBResult(x=self.n_mesh.all_gather(x_loc), err_hist=err_hist,
                          res_hist=res_hist, niters=niters, **extra)
+
+
+# The solvers' bodies, shared by the 1-D tier (here) and the 2-D one
+# (``sharded_gkb2d.py``): ``op`` is this rank's operator (``_Local``), ``v``
+# its ``_Vectors``.
+
+def _lsqr(op, v, maxit, tol, resume_from, reorth):
+    if resume_from is not None:
+        check_fingerprint(resume_from, v.x0, None)
+    fp = resume_fingerprint(v.x0, None, device=v.device)
+    b_iter = v.b_loc if v.x0 is None else v.b_loc - op.matvec(v.x0_loc)
+    d, res_hist, err_hist, niters, carry = _lsqr_core(
+        op, b_iter, None, v.error_fn, v.b_norm, maxit, tol, reorth=reorth,
+        resume_from=resume_from, reduce=v.sum_m, reduce_v=v.sum_n)
+    x = v.at(d)
+    state = GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
+                     fp=fp)
+    # the true residual for the last entry (lsqr_solver.m:52)
+    true_res = pnorm(v.m_mesh, v.b_loc - op.matvec(x)) / v.b_norm
+    return v.result(x, err_hist,
+                    patch_true_residual(res_hist, niters, true_res), niters,
+                    state=state)
+
+
+def _hybrid_lsqr(op, v, maxit, tol, lam, resume_from, reorth):
+    aug = AugmentedOperator(op, lam)
+    if v.x0 is None:
+        b_aug = aug.augment_rhs(v.b_loc)
+    else:
+        sqlam = torch.sqrt(scalar_tensor(lam, v.dtype, v.device))
+        b_aug = torch.cat([v.b_loc - op.matvec(v.x0_loc),
+                           -sqlam * v.x0_loc])
+    if resume_from is not None:
+        check_fingerprint(resume_from, v.x0, lam)
+    fp = resume_fingerprint(v.x0, lam, device=v.device)
+
+    def residual_fn(d_loc):
+        return pnorm(v.m_mesh, v.b_loc - op.matvec(v.at(d_loc))) / v.b_norm
+
+    d, res_hist, err_hist, niters, carry = _lsqr_core(
+        aug, b_aug, residual_fn, v.error_fn, v.b_norm, maxit, tol,
+        reorth=reorth, resume_from=resume_from,
+        reduce=v.sum_aug(op.shape[0]), reduce_v=v.sum_n)
+    state = GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
+                     fp=fp)
+    return v.result(v.at(d), err_hist, res_hist, niters, state=state)
+
+
+def _lsmr(op, v, maxit, tol, resume_from, reorth):
+    if resume_from is not None:
+        check_fingerprint(resume_from, v.x0, None)
+    fp = resume_fingerprint(v.x0, None, device=v.device)
+    # the core carries the whole iterate: the error needs no offset
+    r = _lsmr_core(op, v.b_loc, v.x0_loc, v.b_norm, torch.sqrt(op.fro_sq),
+                   lambda x: pnorm(v.n_mesh, x - v.xt_loc) / v.xt_norm,
+                   maxit, tol, reorth, resume_from, fp, reduce=v.sum_m,
+                   reduce_v=v.sum_n)
+    return v.result(r.x, r.err_hist, r.res_hist, r.niters,
+                    ar_hist=r.ar_hist, state=r.state)
+
+
+def _check_modes(rank1_mode, x0_reg):
+    """The hybrid LSMR's mode arguments, checked before any collective."""
+    if rank1_mode not in ("last", "first"):
+        raise ValueError("rank1_mode must be 'last' or 'first'")
+    if x0_reg not in ("correction", "full"):
+        raise ValueError("x0_reg must be 'correction' or 'full'")
+
+
+def _hybrid_lsmr(op, v, n, maxit, tol, lam, rank1_mode, gcv_grid, reorth,
+                 x0_reg):
+    lam_fn = make_hybrid_lsmr_lam_fn(lam, gcv_grid, n, maxit, v.dtype,
+                                     v.device)
+    b_iter = v.b_loc if v.x0 is None else v.b_loc - op.matvec(v.x0_loc)
+    d, state = _hybrid_lsmr_core(
+        op, v.b_loc, b_iter, v.b_norm, v.error_fn, lam_fn, maxit, tol,
+        rank1_mode, reorth, None, v.x0_loc if x0_reg == "full" else None,
+        None, reduce=v.sum_m, reduce_v=v.sum_n)
+    return v.result(v.at(d), state.err_hist, state.res_hist, state.carry[7])
 
 
 def lsqr_sharded(
@@ -213,23 +308,9 @@ def lsqr_sharded(
     ``reorth=True``: full CGS2 reorthogonalization against the sharded
     stored bases (U m-sharded, V n-sharded; one fused all_reduce a pass)."""
     mesh, A, m, n, maxit = _prep(A, maxit, mesh, axis)
-    v = _Vectors(b, x_true, x0, mesh, m, n)
-    op = _local_ops(A, mesh, v.dtype)
-    if resume_from is not None:
-        check_fingerprint(resume_from, v.x0, None)
-    fp = resume_fingerprint(v.x0, None, device=mesh.device)
-    b_iter = v.b_loc if v.x0 is None else v.b_loc - op.matvec(v.x0_loc)
-    d, res_hist, err_hist, niters, carry = _lsqr_core(
-        op, b_iter, None, v.error_fn, v.b_norm, maxit, tol, reorth=reorth,
-        resume_from=resume_from, reduce=mesh.all_reduce)
-    x = v.at(d)
-    state = GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
-                     fp=fp)
-    # the true residual for the last entry (lsqr_solver.m:52)
-    true_res = pnorm(mesh, v.b_loc - op.matvec(x)) / v.b_norm
-    return v.result(x, err_hist,
-                    patch_true_residual(res_hist, niters, true_res), niters,
-                    state=state)
+    v = _Vectors(b, x_true, x0, mesh, mesh, m, n)
+    return _lsqr(_local_ops(A, mesh, v.dtype), v, maxit, tol, resume_from,
+                 reorth)
 
 
 def hybrid_lsqr_sharded(
@@ -258,28 +339,9 @@ def hybrid_lsqr_sharded(
     ``x0``/``lam``/``reorth``).  ``reorth=True``: CGS2 against the
     augmented U and the V bases."""
     mesh, A, m, n, maxit = _prep(A, maxit, mesh, axis)
-    v = _Vectors(b, x_true, x0, mesh, m, n)
-    op = _local_ops(A, mesh, v.dtype)
-    aug = AugmentedOperator(op, lam)
-    if v.x0 is None:
-        b_aug = aug.augment_rhs(v.b_loc)
-    else:
-        sqlam = torch.sqrt(scalar_tensor(lam, v.dtype, mesh.device))
-        b_aug = torch.cat([v.b_loc - op.matvec(v.x0_loc),
-                           -sqlam * v.x0_loc])
-    if resume_from is not None:
-        check_fingerprint(resume_from, v.x0, lam)
-    fp = resume_fingerprint(v.x0, lam, device=mesh.device)
-
-    def residual_fn(d_loc):
-        return pnorm(mesh, v.b_loc - op.matvec(v.at(d_loc))) / v.b_norm
-
-    d, res_hist, err_hist, niters, carry = _lsqr_core(
-        aug, b_aug, residual_fn, v.error_fn, v.b_norm, maxit, tol,
-        reorth=reorth, resume_from=resume_from, reduce=mesh.all_reduce)
-    state = GKBState(carry=carry, res_hist=res_hist, err_hist=err_hist,
-                     fp=fp)
-    return v.result(v.at(d), err_hist, res_hist, niters, state=state)
+    v = _Vectors(b, x_true, x0, mesh, mesh, m, n)
+    return _hybrid_lsqr(_local_ops(A, mesh, v.dtype), v, maxit, tol, lam,
+                        resume_from, reorth)
 
 
 def lsmr_sharded(
@@ -300,17 +362,9 @@ def lsmr_sharded(
     of the dense slabs').  ``x0``/``resume_from``/``reorth`` as in
     :func:`lsqr_sharded`."""
     mesh, A, m, n, maxit = _prep(A, maxit, mesh, axis)
-    v = _Vectors(b, x_true, x0, mesh, m, n)
-    op = _local_ops(A, mesh, v.dtype)
-    if resume_from is not None:
-        check_fingerprint(resume_from, v.x0, None)
-    fp = resume_fingerprint(v.x0, None, device=mesh.device)
-    # the core carries the whole iterate: the error needs no offset
-    r = _lsmr_core(op, v.b_loc, v.x0_loc, v.b_norm, torch.sqrt(op.fro_sq),
-                   lambda x: pnorm(mesh, x - v.xt_loc) / v.xt_norm, maxit,
-                   tol, reorth, resume_from, fp, reduce=mesh.all_reduce)
-    return v.result(r.x, r.err_hist, r.res_hist, r.niters,
-                    ar_hist=r.ar_hist, state=r.state)
+    v = _Vectors(b, x_true, x0, mesh, mesh, m, n)
+    return _lsmr(_local_ops(A, mesh, v.dtype), v, maxit, tol, resume_from,
+                 reorth)
 
 
 def hybrid_lsmr_sharded(
@@ -338,18 +392,8 @@ def hybrid_lsmr_sharded(
     ``hybrid_lsmr``'s two regularizer semantics (``"full"`` costs one
     fused all_reduce a step for ``V^T x0``).  ``reorth=True``: CGS2 of
     both sharded bases."""
-    if rank1_mode not in ("last", "first"):
-        raise ValueError("rank1_mode must be 'last' or 'first'")
-    if x0_reg not in ("correction", "full"):
-        raise ValueError("x0_reg must be 'correction' or 'full'")
+    _check_modes(rank1_mode, x0_reg)
     mesh, A, m, n, maxit = _prep(A, maxit, mesh, axis)
-    v = _Vectors(b, x_true, x0, mesh, m, n)
-    op = _local_ops(A, mesh, v.dtype)
-    lam_fn = make_hybrid_lsmr_lam_fn(lam, gcv_grid, n, maxit, v.dtype,
-                                     mesh.device)
-    b_iter = v.b_loc if v.x0 is None else v.b_loc - op.matvec(v.x0_loc)
-    d, state = _hybrid_lsmr_core(
-        op, v.b_loc, b_iter, v.b_norm, v.error_fn, lam_fn, maxit, tol,
-        rank1_mode, reorth, None, v.x0_loc if x0_reg == "full" else None,
-        None, reduce=mesh.all_reduce)
-    return v.result(v.at(d), state.err_hist, state.res_hist, state.carry[7])
+    v = _Vectors(b, x_true, x0, mesh, mesh, m, n)
+    return _hybrid_lsmr(_local_ops(A, mesh, v.dtype), v, n, maxit, tol, lam,
+                        rank1_mode, gcv_grid, reorth, x0_reg)

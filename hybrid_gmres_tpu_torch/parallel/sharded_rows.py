@@ -128,27 +128,36 @@ def _operators(A_panels, BT_panels, B_panels, mesh, dtype, comm_dtype):
 
 
 class _Setup:
-    """What both solvers prepare: this rank's slices of ``b``, ``x_true``
-    and ``x0``, the fingerprint, and the checkpoint to resume from."""
+    """What the solvers prepare: this rank's slices of ``b`` (its slab
+    along ``m_mesh``; a ``b`` of the slab's length is taken as the slab),
+    ``x_true`` and ``x0`` (along ``n_mesh``; the same mesh on the 1-D
+    tier, the per-axis sub-meshes on the 2-D one), the fingerprint, and
+    the checkpoint to resume from."""
 
-    def __init__(self, b, x_true, x0, lam, resume_from, mesh, m, n, maxit,
-                 need):
-        p, my = mesh.size, mesh.index
-        self.mloc, self.nloc = m // p, n // p
-        dev = mesh.device
+    def __init__(self, b, x_true, x0, lam, resume_from, m_mesh, n_mesh, m,
+                 n, maxit, need):
+        self.mloc, self.nloc = m // m_mesh.size, n // n_mesh.size
+        self.rows_m = slice(m_mesh.index * self.mloc,
+                            (m_mesh.index + 1) * self.mloc)
+        self.rows_n = slice(n_mesh.index * self.nloc,
+                            (n_mesh.index + 1) * self.nloc)
+        dev = m_mesh.device
         b = torch.as_tensor(b, device=dev)
         self.dtype = dtype = b.dtype
         like = dict(dtype=dtype, device=dev)
-        self.b_loc = b[my * self.mloc:(my + 1) * self.mloc]
+        if b.shape[0] not in (m, self.mloc):
+            raise ValueError(f"b has {b.shape[0]} rows; the operator has "
+                             f"{m} (this rank's slab {self.mloc})")
+        self.b_loc = b if b.shape[0] == self.mloc else b[self.rows_m]
         self.have_xt = x_true is not None
         xt = (torch.zeros(n, **like) if x_true is None
               else torch.as_tensor(x_true, **like))
-        self.xt_loc = xt[my * self.nloc:(my + 1) * self.nloc]
+        self.xt_loc = xt[self.rows_n]
         self.fp = resume_fingerprint(x0, lam, device=dev)
         self.have_x0 = x0 is not None
         x0 = torch.zeros(n, **like) if x0 is None else torch.as_tensor(
             x0, **like)
-        self.x0_loc = x0[my * self.nloc:(my + 1) * self.nloc]
+        self.x0_loc = x0[self.rows_n]
         self.rs = None
         self.k0 = 0
         if resume_from is not None:
@@ -205,21 +214,41 @@ def ba_gmres_sharded_pallas(
     mesh = _default_mesh(mesh, axis)
     maxit = int(maxit)
     p, m, n = _validate(A_panels, BT_panels, mesh, B_panels)
-    s = _Setup(b, x_true, x0, lam, resume_from, mesh, m, n, maxit, ("IMG",))
-    dtype, dev = s.dtype, mesh.device
-    A_mv, B_mv = _operators(A_panels, BT_panels, B_panels, mesh, dtype,
+    s = _Setup(b, x_true, x0, lam, resume_from, mesh, mesh, m, n, maxit,
+               ("IMG",))
+    A_mv, B_mv = _operators(A_panels, BT_panels, B_panels, mesh, s.dtype,
                             comm_dtype)
-    b_norm = pnorm(mesh, s.b_loc)
-    xt_norm = pnorm(mesh, s.xt_loc)
+    return _ba_loop(s, mesh, mesh, A_mv, B_mv, n, maxit, tol, lam, gcv_grid)
+
+
+def _pair_norms(m_mesh, n_mesh, r_loc, d_loc):
+    """The norms of an m-sharded and an n-sharded slab: one fused
+    all_reduce when one mesh holds both spaces (the 1-D tier), one sum
+    over each space's axis on the 2-D tier."""
+    if m_mesh is n_mesh:
+        sq = m_mesh.all_reduce(torch.stack([torch.dot(r_loc, r_loc),
+                                            torch.dot(d_loc, d_loc)]))
+        return torch.sqrt(sq[0]), torch.sqrt(sq[1])
+    return pnorm(m_mesh, r_loc), pnorm(n_mesh, d_loc)
+
+
+def _ba_loop(s, m_mesh, n_mesh, A_mv, B_mv, n, maxit, tol, lam, gcv_grid):
+    """The sharded BA-GMRES loop on this rank's slabs, for every tier: the
+    n-sharded basis expanded over ``n_mesh``, the images ``A q_k`` kept
+    m-sharded (``.IMG``) for the TRUE residual, the residual summed over
+    ``m_mesh`` and the error over ``n_mesh`` (the same mesh on the 1-D
+    tier, the per-axis sub-meshes on the 2-D one)."""
+    dtype, dev = s.dtype, n_mesh.device
+    b_norm = pnorm(m_mesh, s.b_loc)
+    xt_norm = pnorm(n_mesh, s.xt_loc)
     rhs_loc = s.b_loc - A_mv(s.x0_loc) if s.have_x0 else s.b_loc
-    st = ShardedArnoldi(mesh, s.nloc, maxit, s.x0_loc, dtype, dev)
+    st = ShardedArnoldi(n_mesh, s.nloc, maxit, s.x0_loc, dtype, dev)
     IMG = column_major(s.mloc, maxit, dtype, dev)
     if s.rs is None:
         st.start(B_mv(rhs_loc))
     else:
         st.resume(s.rs, s.k0, s.active)
-        st.x = s.rs.x.to(dtype)[mesh.index * s.nloc:
-                                (mesh.index + 1) * s.nloc].clone()
+        st.x = s.rs.x.to(dtype)[s.rows_n].clone()
         IMG.copy_(s.rs.IMG)
     # trace_dim = n for BA (gcv_function.m:46-50)
     ps = _make_project_solve(lam, n, gcv_grid)
@@ -230,13 +259,12 @@ def ba_gmres_sharded_pallas(
         kdim = k + 1
         y = ps(st.H, None, st.t, kdim)[:kdim]
         xk_loc = s.x0_loc + st.Q[:, :kdim] @ y
-        r_loc = rhs_loc - IMG[:, :kdim] @ y
-        d_loc = xk_loc - s.xt_loc
-        sq = mesh.all_reduce(torch.stack([torch.dot(r_loc, r_loc),
-                                          torch.dot(d_loc, d_loc)]))
-        st.adopt(k, xk_loc, torch.sqrt(sq[0]) / b_norm,
-                 torch.sqrt(sq[1]) / xt_norm, breakdown, tol)
-    return _finish(s, st, mesh, IMG=IMG)
+        r_norm, d_norm = _pair_norms(m_mesh, n_mesh,
+                                     rhs_loc - IMG[:, :kdim] @ y,
+                                     xk_loc - s.xt_loc)
+        st.adopt(k, xk_loc, r_norm / b_norm, d_norm / xt_norm, breakdown,
+                 tol)
+    return _finish(s, st, n_mesh, IMG=IMG)
 
 
 def _finish(s, st, mesh, **bases):
@@ -274,23 +302,29 @@ def ab_gmres_sharded_pallas(
     mesh = _default_mesh(mesh, axis)
     maxit = int(maxit)
     p, m, n = _validate(A_panels, BT_panels, mesh, B_panels)
-    s = _Setup(b, x_true, x0, lam, resume_from, mesh, m, n, maxit,
+    s = _Setup(b, x_true, x0, lam, resume_from, mesh, mesh, m, n, maxit,
                ("IMG", "S"))
-    dtype, dev = s.dtype, mesh.device
-    A_mv, B_mv = _operators(A_panels, BT_panels, B_panels, mesh, dtype,
+    A_mv, B_mv = _operators(A_panels, BT_panels, B_panels, mesh, s.dtype,
                             comm_dtype)
-    b_norm = pnorm(mesh, s.b_loc)
-    xt_norm = pnorm(mesh, s.xt_loc)
+    return _ab_loop(s, mesh, mesh, A_mv, B_mv, m, maxit, tol, lam, gcv_grid)
+
+
+def _ab_loop(s, m_mesh, n_mesh, A_mv, B_mv, m, maxit, tol, lam, gcv_grid):
+    """The sharded AB-GMRES loop on this rank's slabs, for every tier: the
+    m-sharded basis expanded over ``m_mesh``, the images ``S`` n-sharded
+    and ``W`` m-sharded; sums as in :func:`_ba_loop`."""
+    dtype, dev = s.dtype, m_mesh.device
+    b_norm = pnorm(m_mesh, s.b_loc)
+    xt_norm = pnorm(n_mesh, s.xt_loc)
     rhs_loc = s.b_loc - A_mv(s.x0_loc) if s.have_x0 else s.b_loc
-    st = ShardedArnoldi(mesh, s.mloc, maxit, s.x0_loc, dtype, dev)
+    st = ShardedArnoldi(m_mesh, s.mloc, maxit, s.x0_loc, dtype, dev)
     S = column_major(s.nloc, maxit, dtype, dev)
     W = column_major(s.mloc, maxit, dtype, dev)
     if s.rs is None:
         st.start(rhs_loc)
     else:
         st.resume(s.rs, s.k0, s.active)
-        st.x = s.rs.x.to(dtype)[mesh.index * s.nloc:
-                                (mesh.index + 1) * s.nloc].clone()
+        st.x = s.rs.x.to(dtype)[s.rows_n].clone()
         W.copy_(s.rs.IMG)
         S.copy_(s.rs.S)
     # trace_dim = m for AB (gcv_function.m:46-50)
@@ -304,13 +338,12 @@ def ab_gmres_sharded_pallas(
         kdim = k + 1
         y = ps(st.H, None, st.t, kdim)[:kdim]
         xk_loc = s.x0_loc + S[:, :kdim] @ y
-        r_loc = rhs_loc - W[:, :kdim] @ y
-        d_loc = xk_loc - s.xt_loc
-        sq = mesh.all_reduce(torch.stack([torch.dot(r_loc, r_loc),
-                                          torch.dot(d_loc, d_loc)]))
-        st.adopt(k, xk_loc, torch.sqrt(sq[0]) / b_norm,
-                 torch.sqrt(sq[1]) / xt_norm, breakdown, tol)
-    return _finish(s, st, mesh, IMG=W, S=S)
+        r_norm, d_norm = _pair_norms(m_mesh, n_mesh,
+                                     rhs_loc - W[:, :kdim] @ y,
+                                     xk_loc - s.xt_loc)
+        st.adopt(k, xk_loc, r_norm / b_norm, d_norm / xt_norm, breakdown,
+                 tol)
+    return _finish(s, st, n_mesh, IMG=W, S=S)
 
 
 def ba_gmres_sharded_pallas_restarted(

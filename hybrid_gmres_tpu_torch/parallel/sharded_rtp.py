@@ -59,7 +59,7 @@ def _rtp_core(kind, A_panels, BT_panels, b, x_true, tol, maxit, lam, mesh,
     mesh = _default_mesh(mesh, axis)
     maxit = int(maxit)
     p, m, n = _validate(A_panels, BT_panels, mesh, B_panels)
-    s = _Setup(b, x_true, None, lam, None, mesh, m, n, maxit, ())
+    s = _Setup(b, x_true, None, lam, None, mesh, mesh, m, n, maxit, ())
     dtype, dev = s.dtype, mesh.device
     A_mv, B_mv = _operators(A_panels, BT_panels, B_panels, mesh, dtype, None)
     lam_c = scalar_tensor(lam, dtype, dev)

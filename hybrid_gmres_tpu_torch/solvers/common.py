@@ -351,12 +351,40 @@ def _gmres_core_deferred(fused, project_solve, solution_fn, error_fn, maxit,
                        S=S, active=active_f)
 
 
+class SplitSum(NamedTuple):
+    """The sum over the ranks for a space whose local slab is two slabs
+    sharded over different ranks: entries ``[:at]`` summed by ``first``,
+    ``[at:]`` by ``second`` (the augmented u-space of the 2-D hybrid LSQR:
+    rays over the mesh's "rows", pixels over its "cols").  Where a
+    ``reduce`` is taken, this may stand in for it: :func:`inner` then
+    forms and sums the two parts' products apart."""
+
+    at: int
+    first: Callable
+    second: Callable
+
+
+def inner(X, vec, reduce=None):
+    """``X @ vec`` summed over a mesh: ``X`` (k, space) or (space,), ``vec``
+    (space,) this rank's slabs; ``reduce``: None (one device), a sum of a
+    local partial (e.g. ``Mesh.all_reduce``) or a :class:`SplitSum`."""
+    if isinstance(reduce, SplitSum):
+        a = reduce.at
+        return (reduce.first(X[..., :a] @ vec[:a])
+                + reduce.second(X[..., a:] @ vec[a:]))
+    c = X @ vec
+    return c if reduce is None else reduce(c)
+
+
 def global_norm(vec, reduce=None):
     """``||vec||``; with ``reduce`` (a sum over the ranks of a mesh, e.g.
-    ``Mesh.all_reduce``) the norm of the sharded vector whose local slab
-    ``vec`` is, one collective."""
+    ``Mesh.all_reduce``, or a :class:`SplitSum`) the norm of the sharded
+    vector whose local slab ``vec`` is, one collective (two for a split
+    space)."""
     if reduce is None:
         return torch.linalg.vector_norm(vec)
+    if isinstance(reduce, SplitSum):
+        return torch.sqrt(inner(vec, vec, reduce))
     return torch.sqrt(reduce(torch.dot(vec, vec)))
 
 

@@ -96,12 +96,14 @@ def lsmr(A, b, x_true=None, tol: float = 1e-6, maxit: int | None = None,
 
 
 def _lsmr_core(A, b, x0, b_norm, fro_norm, error_fn, maxit, tol, reorth,
-               resume_from, fp, reduce=None):
+               resume_from, fp, reduce=None, reduce_v=None):
     """The LSMR recurrence on ``A`` from the iterate ``x0`` (None: zero),
     as :func:`lsmr` documents it; returns the :class:`GKBResult`.
     ``reduce``: the sum over a mesh when ``A`` acts on this rank's slabs of
     sharded vectors (``parallel/sharded_gkb.py``): every norm and
-    purification pass then reduces over it."""
+    purification pass then reduces over it.  ``reduce_v``: the v-space's
+    sum where it differs from the u-space's ``reduce`` (the 2-D mesh)."""
+    rv = reduce if reduce_v is None else reduce_v
     dtype, device = b.dtype, b.device
     like = dict(dtype=dtype, device=device)
     eps = torch.finfo(dtype).eps
@@ -113,7 +115,7 @@ def _lsmr_core(A, b, x0, b_norm, fro_norm, error_fn, maxit, tol, reorth,
     if resume_from is None:
         b_iter = b if x0 is None else b - A.matvec(x0)
         u, beta1, _ = safe_normalize(b_iter, reduce)
-        v, alpha1, _ = safe_normalize(A.rmatvec(u), reduce)
+        v, alpha1, _ = safe_normalize(A.rmatvec(u), rv)
         x = torch.zeros((n,), **like) if x0 is None else x0
         h, hbar = v, torch.zeros((n,), **like)
         one = torch.ones((), **like)
@@ -143,8 +145,8 @@ def _lsmr_core(A, b, x0, b_norm, fro_norm, error_fn, maxit, tol, reorth,
         u_n, beta_k, ok_u = safe_normalize(uhat, reduce)
         vhat = A.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:k + 1], vhat, reduce)
-        v_n, alpha_n, ok_v = safe_normalize(vhat, reduce)
+            vhat = purify(Vb[:k + 1], vhat, rv)
+        v_n, alpha_n, ok_v = safe_normalize(vhat, rv)
 
         alphahat = alphabar
         rhoold = rho
@@ -173,7 +175,7 @@ def _lsmr_core(A, b, x0, b_norm, fro_norm, error_fn, maxit, tol, reorth,
         r = b - A.matvec(x_n)
         r_norm = global_norm(r, reduce)
         res_k = r_norm / (b_norm + eps)
-        ar_k = global_norm(A.rmatvec(r), reduce) / (
+        ar_k = global_norm(A.rmatvec(r), rv) / (
             fro_norm * torch.clamp(r_norm, min=eps))
         err_k = error_fn(x_n)
 
@@ -316,12 +318,14 @@ def hybrid_lsmr(A, b, x_true=None, tol: float = 1e-6,
 
 def _hybrid_lsmr_core(A, b, b_iter, b_norm, error_fn, lam_fn, maxit, tol,
                       rank1_mode, reorth, resume_from, x0_full, fp,
-                      reduce=None):
+                      reduce=None, reduce_v=None):
     """The hybrid LSMR recurrence on ``A`` for the correction ``d`` of
     ``b_iter`` (``b - A x0``), as :func:`hybrid_lsmr` documents it.
     ``x0_full``: the warm start of ``x0_reg="full"`` (else None).  Returns
     ``(d, state)``.  ``reduce``: the sum over a mesh when ``A`` acts on
-    this rank's slabs of sharded vectors (``parallel/sharded_gkb.py``)."""
+    this rank's slabs of sharded vectors (``parallel/sharded_gkb.py``);
+    ``reduce_v``: the v-space's where it differs (the 2-D mesh)."""
+    rv = reduce if reduce_v is None else reduce_v
     dtype, device = b.dtype, b.device
     like = dict(dtype=dtype, device=device)
     n = A.shape[1]
@@ -331,7 +335,7 @@ def _hybrid_lsmr_core(A, b, b_iter, b_norm, error_fn, lam_fn, maxit, tol,
         if x0_full is None:
             return None
         c = Vk @ x0_full
-        return -lam_k * (c if reduce is None else reduce(c))
+        return -lam_k * (c if rv is None else rv(c))
 
     def solve_at(Bmat_k, alpha_next, beta_k, kdim):
         """The iterate of step ``kdim`` and its records."""
@@ -348,7 +352,7 @@ def _hybrid_lsmr_core(A, b, b_iter, b_norm, error_fn, lam_fn, maxit, tol,
     Ub = None
     if resume_from is None:
         u, beta1, _ = safe_normalize(b_iter, reduce)
-        v, alpha, _ = safe_normalize(A.rmatvec(u), reduce)
+        v, alpha, _ = safe_normalize(A.rmatvec(u), rv)
         Vb = stored_basis(v, maxit)
         Bmat = torch.zeros((maxit + 1, maxit), **like)
         x = torch.zeros((n,), **like)
@@ -402,8 +406,8 @@ def _hybrid_lsmr_core(A, b, b_iter, b_norm, error_fn, lam_fn, maxit, tol,
         # REPORTING (hybrid_lsmr_solver.m:26-33) is recovered below.
         vhat = A.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:kdim], vhat, reduce)
-        v2, alpha2, ok2 = safe_normalize(vhat, reduce)
+            vhat = purify(Vb[:kdim], vhat, rv)
+        v2, alpha2, ok2 = safe_normalize(vhat, rv)
         adv = k < maxit - 1
         alpha_rep = alpha2 if adv else alpha        # stale at final iter
         adopt = active & ok_u & (ok2 if adv else True)

@@ -35,6 +35,7 @@ from hybrid_gmres_tpu_torch.ops.linear_operator import (
 from hybrid_gmres_tpu_torch.solvers.common import (
     GKBResult,
     GKBState,
+    inner,
     rel_error_fn,
     safe_normalize,
 )
@@ -49,10 +50,10 @@ def purify(basis_rows, vec, reduce=None):
     """Two CGS passes of ``vec`` against the basis vectors stored as the
     rows of ``basis_rows`` (k, space): plain dense products.  ``reduce``:
     for a sharded basis, the sum over the mesh of each pass's coefficients
-    (one fused collective per pass)."""
+    (one fused collective per pass; a ``common.SplitSum`` for a space
+    sharded in two parts, one per part)."""
     for _ in range(2):
-        c = basis_rows @ vec
-        vec = vec - basis_rows.T @ (c if reduce is None else reduce(c))
+        vec = vec - basis_rows.T @ inner(basis_rows, vec, reduce)
     return vec
 
 
@@ -107,7 +108,8 @@ def patch_true_residual(res_hist, niters, true_res):
 
 
 def _lsqr_core(iter_op, b_iter, residual_fn, error_fn, b_norm_for_estimate,
-               maxit, tol, reorth=False, resume_from=None, reduce=None):
+               maxit, tol, reorth=False, resume_from=None, reduce=None,
+               reduce_v=None):
     """The LSQR recurrence on ``iter_op``.  ``residual_fn``: x -> true
     relative residual, or None for the cheap estimate.  Returns ``(x,
     res_hist, err_hist, niters, carry)``: the UNPATCHED histories of length
@@ -115,14 +117,17 @@ def _lsqr_core(iter_op, b_iter, residual_fn, error_fn, b_norm_for_estimate,
     rho_bar, alpha, active, niters, U, V)``.  ``reduce``: the sum over a
     mesh when ``iter_op`` acts on this rank's slabs of sharded vectors
     (``parallel/sharded_gkb.py``): every norm and purification pass then
-    reduces over it."""
+    reduces over it.  ``reduce_v``: the sum for the v-space (image)
+    vectors where it differs from the u-space's ``reduce`` (the 2-D mesh:
+    u over "rows", v over "cols")."""
+    rv = reduce if reduce_v is None else reduce_v
     dtype, device = b_iter.dtype, b_iter.device
     m, n = iter_op.shape
     k0, res_hist, err_hist = resumed_histories(resume_from, maxit, b_iter)
     Ub = Vb = None
     if resume_from is None:
         u, beta, _ = safe_normalize(b_iter, reduce)
-        v, alpha, _ = safe_normalize(iter_op.rmatvec(u), reduce)
+        v, alpha, _ = safe_normalize(iter_op.rmatvec(u), rv)
         w = v
         x = torch.zeros((n,), dtype=dtype, device=device)
         phi_bar, rho_bar, alpha_c = beta, alpha, alpha
@@ -150,8 +155,8 @@ def _lsqr_core(iter_op, b_iter, residual_fn, error_fn, b_norm_for_estimate,
         u_n, beta_k, ok_u = safe_normalize(uhat, reduce)
         vhat = iter_op.rmatvec(u_n) - beta_k * v
         if reorth:
-            vhat = purify(Vb[:k + 1], vhat, reduce)
-        v_n, alpha_n, ok_v = safe_normalize(vhat, reduce)
+            vhat = purify(Vb[:k + 1], vhat, rv)
+        v_n, alpha_n, ok_v = safe_normalize(vhat, rv)
 
         rho = torch.hypot(rho_bar, beta_k)
         c = rho_bar / rho

@@ -7,7 +7,8 @@ both packages compute with the very same panels;
 :func:`gkb_state_from_numpy` / :func:`gkb_result_from_numpy` for the GKB
 (LSQR/LSMR) family, so the port can resume a solve the JAX package began;
 :func:`sharded_panels_from_numpy`, :func:`panels_with_adjoint_from_numpy`
-and :func:`composed_panels_from_numpy` for the sharded panels.
+and :func:`composed_panels_from_numpy` for the sharded panels, and
+:func:`tiled_panels_from_numpy` for the 2-D tiles.
 Nothing here imports JAX:
 the caller does ``np.asarray`` on each leaf.  These helpers exist for the
 parity tests, so ``device`` is a required keyword.
@@ -29,6 +30,7 @@ from hybrid_gmres_tpu_torch.parallel.panels import (
     ShardedPanels,
     _shard_forms,
 )
+from hybrid_gmres_tpu_torch.parallel.panels2d import TiledPanels
 from hybrid_gmres_tpu_torch.solvers.common import (
     GKBResult,
     GKBState,
@@ -189,3 +191,40 @@ def composed_panels_from_numpy(A, BT, kind, B=None, *,
         sharded_panels_from_numpy(**BT, device=device), kind,
         B=None if B is None else sharded_panels_from_numpy(**B,
                                                            device=device))
+
+
+def tiled_panels_from_numpy(buckets, inv_perm, shape, ncb_tile, row_group,
+                            pr, pc, packed4=False, row_scale=None,
+                            fro_sq=None, *, device) -> TiledPanels:
+    """The port's ``TiledPanels`` from the leaves of a JAX one, numpy arrays
+    under the JAX constructor's names: the stacked per-bucket ``(blocks
+    (pr*pc, nbr_b, maxb, br, bc), bcols (pr*pc, ...))`` padded to
+    mesh-uniform shapes (nibble pairs when ``packed4``), ``inv_perm``
+    (pr*pc, nbr) into the padded positions, ``row_scale`` (pr*pc, m/pr) or
+    None, ``fro_sq`` (pr*pc,), the grid.  Each tile's panel is taken from
+    its slice (the padding positions become padding of that panel, which
+    the forms leave out) and kept as its two forms, rows in source order,
+    on ``device``.  The forms need no ``fwd_perm``."""
+    m, n = shape
+    tile = (m // pr, n // pc)
+    br, bc = np.asarray(buckets[0][0]).shape[3:]
+    inv_perm = np.asarray(inv_perm)
+    tiles = []
+    for d in range(pr * pc):
+        per = []
+        for blocks, bcols in buckets:
+            blk = np.asarray(blocks)[d]
+            per.append((blk, np.asarray(bcols)[d].reshape(blk.shape[0], -1)))
+        bell = BucketedBlockELL.from_numpy(per, inv_perm[d], tile,
+                                           int(ncb_tile), packed4=packed4,
+                                           device="cpu")
+        scale = None if row_scale is None else torch.as_tensor(
+            np.array(row_scale, np.float32)[d])
+        tiles.append(_shard_forms(bell, scale, 0, 0, bell.shape,
+                                  bell.ncb).to(device))
+    return TiledPanels(
+        tiles=tuple(tiles), shape=(int(m), int(n)), pr=int(pr), pc=int(pc),
+        block_shape=(int(br), int(bc)), row_group=int(row_group),
+        packed4=bool(packed4),
+        fro_sq=None if fro_sq is None else torch.tensor(
+            np.asarray(fro_sq, np.float32)))

@@ -15,10 +15,10 @@ with its tolerances:
   * the analytic communication volume exactly.
 
 Not mirrored here: the GSPMD test (line 75; PyTorch has no sharding
-propagation short of DTensor), the two that read XLA's HLO (lines 1164,
-1401), and the 2-D tests, whose modules are not ported yet.  The GKB, RTP,
-composed-panel and multi-RHS tests are mirrored in
-``tests/test_torch_parallel_solvers.py``.
+propagation short of DTensor) and the two that read XLA's HLO (lines 1164,
+1401).  The GKB, RTP, composed-panel and multi-RHS tests are mirrored in
+``tests/test_torch_parallel_solvers.py``, the 2-D tests in
+``tests/test_torch_parallel_2d.py``.
 """
 
 import numpy as np

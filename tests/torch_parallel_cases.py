@@ -1,14 +1,15 @@
-"""The port's side of ``tests/test_torch_parallel.py`` and
-``tests/test_torch_parallel_solvers.py``, run on 4 gloo ranks.
+"""The port's side of ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_solvers.py`` and
+``tests/test_torch_parallel_2d.py``, run on 4 gloo ranks.
 
 This module imports no JAX: :func:`spawn` starts the ranks with the
 ``spawn`` method, each imports this module afresh, joins one gloo process
 group on localhost, runs every case of one group (:data:`CASES` for the
-first file, :data:`SOLVER_CASES` for the second) on the inputs the test
-module made (numpy arrays) and sends its results back as numpy arrays.  A
-case that raises records the exception's type and message instead, on
-every rank alike (every case raises, if at all, before its first
-collective).
+first file, :data:`SOLVER_CASES` for the second, :data:`CASES_2D` for the
+third) on the inputs the test module made (numpy arrays) and sends its
+results back as numpy arrays.  A case that raises records the exception's
+type and message instead, on every rank alike (every case raises, if at
+all, before its first collective).
 """
 
 from __future__ import annotations
@@ -817,11 +818,316 @@ SOLVER_CASES = {name[6:]: fn for name, fn in globals().items()
                 if name.startswith("scase_")}
 
 
+# --------------------------------------------------------------------------
+# The 2-D cases of tests/test_torch_parallel_2d.py.  Each takes the rank's
+# 2-D meshes by grid (built once, every rank in the same order) and the
+# inputs.
+# --------------------------------------------------------------------------
+
+GRIDS = ((2, 2), (4, 1), (1, 4))
+SQUARE = (2, 2)      # the grid of the JAX tests that run one (4, 2) grid
+WIDE = (1, 4)        # the grid of those that run one (2, 4) grid
+
+
+def _tiles(a, grid, **kw):
+    from hybrid_gmres_tpu_torch.parallel import tile_bucketed_panels
+
+    return tile_bucketed_panels(_csr(a), *grid, **kw)
+
+
+def tcase_mesh_axes(meshes, inp):
+    """The per-axis groups: their ranks, this rank's index on each, a sum
+    over each axis and the calls counted there; the card default raises
+    without one; a 1-D mesh has no axis groups."""
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_gmres_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    out = {}
+    me = torch.tensor([float(dist.get_rank())], dtype=torch.float64)
+    for g, mesh in meshes.items():
+        rows, cols = mesh.axis("rows"), mesh.axis("cols")
+        before = (rows.calls["all_reduce"], cols.calls["all_reduce"],
+                  mesh.calls["all_reduce"])
+        sums = (rows.all_reduce(me.clone()), cols.all_reduce(me.clone()))
+        out[str(g)] = {
+            "coords": np.array(mesh.coords),
+            "ranks": [list(rows.ranks), list(cols.ranks)],
+            "index": np.array([rows.index, cols.index]),
+            "sums": np.array([float(v) for v in sums]),
+            "calls": np.array([rows.calls["all_reduce"] - before[0],
+                               cols.calls["all_reduce"] - before[1],
+                               mesh.calls["all_reduce"] - before[2]])}
+    try:
+        make_mesh_2d((2, 2))
+        out["cuda"] = "no error"
+    except RuntimeError as e:
+        out["cuda"] = type(e).__name__
+    out["no_axis"] = _error(lambda: make_mesh(device="cpu").axis("rows"))
+    return out
+
+
+def tcase_dense_2d(meshes, inp):
+    """The dense 2-D solver (float64) on every grid and lam, the
+    divisibility and mesh checks, and lam="gcv" on the square grid."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ba_gmres_sharded_2d, shard_problem_2d)
+
+    A, B, b, xt = dense_prob()
+    out = {}
+    for g, mesh in meshes.items():
+        A2, B2, b2 = shard_problem_2d(A, B, b, mesh)
+        for lam in (None, 1e-3):
+            out[f"{g} {lam}"] = _res(ba_gmres_sharded_2d(
+                A2, B2, b2, xt, tol=1e-10, maxit=16, lam=lam, mesh=mesh))
+    out["divisible"] = _error(lambda: shard_problem_2d(
+        A[:30], B[:, :30], b[:30], meshes[(4, 1)]))
+    out["no_mesh"] = _error(lambda: ba_gmres_sharded_2d(
+        A2, B2, b2, None, maxit=4, mesh=None))
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=26)
+    mesh = meshes[SQUARE]
+    A2, B2, b2 = shard_problem_2d(Ad, Bd, b, mesh)
+    out["gcv"] = _res(ba_gmres_sharded_2d(
+        A2, B2, b2, xt, tol=0.0, maxit=6, lam="gcv",
+        gcv_grid=np.logspace(-6, -1, 12), mesh=mesh))
+    return out
+
+
+def tcase_tiled(meshes, inp):
+    """BA/AB on f32 tiles on every grid; int8/int4 A tiles and lam="gcv"
+    on one grid."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_pallas_2d, ba_gmres_sharded_pallas_2d)
+
+    out = {}
+    kw = dict(tol=0.0, lam=1e-3)
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=23)
+    for g, mesh in meshes.items():
+        A_t, BT_t = _tiles(Ad, g), _tiles(Bd.T, g)
+        for kind, f in (("ba", ba_gmres_sharded_pallas_2d),
+                        ("ab", ab_gmres_sharded_pallas_2d)):
+            out[f"{kind} {g}"] = _res(f(A_t, BT_t, b, xt, maxit=8,
+                                        mesh=mesh, **kw))
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=24)
+    mesh = meshes[SQUARE]
+    for dtype in ("int8", "int4"):
+        out[dtype] = _res(ba_gmres_sharded_pallas_2d(
+            _tiles(Ad, SQUARE, dtype=dtype), _tiles(Bd.T, SQUARE), b, xt,
+            maxit=6, mesh=mesh, **kw))
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=25)
+    out["gcv"] = _res(ba_gmres_sharded_pallas_2d(
+        _tiles(Ad, SQUARE), _tiles(Bd.T, SQUARE), b, xt, tol=0.0, maxit=6,
+        lam="gcv", gcv_grid=np.logspace(-6, -1, 12), mesh=mesh))
+    return out
+
+
+def tcase_forward(meshes, inp):
+    """The forward-layout B tiles on every grid (BA and AB), int8 forward
+    tiles on the square grid, and wrong-grid tiles refused."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_pallas_2d, ba_gmres_sharded_pallas_2d,
+        tile_backprojector_forward)
+
+    Ad, Bd, b, xt = sparse_pair(64, 32, seed=29)
+    kw = dict(tol=0.0, maxit=6, lam=1e-3)
+    out = {}
+    for g, mesh in meshes.items():
+        A_t = _tiles(Ad, g)
+        B_t = tile_backprojector_forward(_csr(Bd), *g)
+        for kind, f in (("ba", ba_gmres_sharded_pallas_2d),
+                        ("ab", ab_gmres_sharded_pallas_2d)):
+            out[f"{kind} {g}"] = _res(f(A_t, None, b, xt, mesh=mesh,
+                                        B_tiles=B_t, **kw))
+    mesh, A_t = meshes[SQUARE], _tiles(Ad, SQUARE)
+    out["int8"] = _res(ba_gmres_sharded_pallas_2d(
+        A_t, None, b, xt, mesh=mesh, B_tiles=tile_backprojector_forward(
+            _csr(Bd), *SQUARE, dtype=np.int8), **kw))
+    out["wrong_grid"] = _error(lambda: ba_gmres_sharded_pallas_2d(
+        A_t, None, b, xt, maxit=4, mesh=mesh,
+        B_tiles=_tiles(Bd, SQUARE)))
+    return out
+
+
+def tcase_gmres_modes(meshes, inp):
+    """Warm start, resume and the restarted wrappers, BA and AB, on the
+    square grid."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_pallas_2d, ab_gmres_sharded_pallas_2d_restarted,
+        ba_gmres_sharded_pallas_2d, ba_gmres_sharded_pallas_2d_restarted)
+
+    mesh = meshes[SQUARE]
+    solvers = {"ba": (ba_gmres_sharded_pallas_2d,
+                      ba_gmres_sharded_pallas_2d_restarted),
+               "ab": (ab_gmres_sharded_pallas_2d,
+                      ab_gmres_sharded_pallas_2d_restarted)}
+    out = {}
+    for kind, (f, f_rst) in solvers.items():
+        Ad, Bd, b, xt = sparse_pair(64, 32, seed=11)
+        x0 = (xt + 0.2 * np.random.default_rng(3).standard_normal(
+            xt.shape)).astype(np.float32)
+        out[f"x0 {kind}"] = _res(f(_tiles(Ad, SQUARE), _tiles(Bd.T, SQUARE),
+                                   b, xt, tol=0.0, maxit=6, lam=1e-3,
+                                   mesh=mesh, x0=x0))
+        Ad, Bd, b, xt = sparse_pair(64, 32, seed=12)
+        A_t, BT_t = _tiles(Ad, SQUARE), _tiles(Bd.T, SQUARE)
+        kw = dict(tol=0.0, lam=1e-3, mesh=mesh)
+        part = f(A_t, BT_t, b, xt, maxit=4, **kw)
+        out[f"resume {kind}"] = {
+            "full": _res(f(A_t, BT_t, b, xt, maxit=8, **kw)),
+            "resumed": _res(f(A_t, BT_t, b, xt, maxit=8, resume_from=part,
+                              **kw))}
+        Ad, Bd, b, xt = sparse_pair(64, 32, seed=13)
+        out[f"restarted {kind}"] = _res(f_rst(
+            _tiles(Ad, SQUARE), _tiles(Bd.T, SQUARE), b, xt, tol=1e-10,
+            restart=4, max_restarts=2, lam=1e-3, mesh=mesh))
+    return out
+
+
+def tcase_gkb(meshes, inp):
+    """The four GKB solvers on every grid; reorth on the wide grid (and
+    the hybrid LSQR's, whose augmented space sums over both axes, on the
+    square one)."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        hybrid_lsmr_sharded_2d, hybrid_lsqr_sharded_2d, lsmr_sharded_2d,
+        lsqr_sharded_2d)
+
+    Ad, _, b, xt = sparse_pair(64, 32, seed=41)
+    kw = dict(tol=0.0, maxit=10)
+    out = {}
+    for g, mesh in meshes.items():
+        t = _tiles(Ad, g)
+        out[f"lsqr {g}"] = _gkb(lsqr_sharded_2d(t, b, xt, mesh=mesh, **kw))
+        out[f"hybrid_lsqr {g}"] = _gkb(hybrid_lsqr_sharded_2d(
+            t, b, xt, lam=1e-2, mesh=mesh, **kw))
+        out[f"lsmr {g}"] = _gkb(lsmr_sharded_2d(t, b, xt, mesh=mesh, **kw))
+        for lam in (1e-2, "gcv"):
+            out[f"hybrid_lsmr {lam} {g}"] = _gkb(hybrid_lsmr_sharded_2d(
+                t, b, xt, lam=lam, mesh=mesh, **kw))
+    for name, f, g, extra in (
+            ("lsqr", lsqr_sharded_2d, WIDE, {}),
+            ("lsmr", lsmr_sharded_2d, WIDE, {}),
+            ("hybrid_lsmr", hybrid_lsmr_sharded_2d, WIDE, {"lam": 1e-2}),
+            ("hybrid_lsqr", hybrid_lsqr_sharded_2d, SQUARE, {"lam": 1e-2})):
+        out[f"reorth {name}"] = _gkb(f(_tiles(Ad, g), b, xt, mesh=meshes[g],
+                                       reorth=True, **kw, **extra))
+    return out
+
+
+def tcase_gkb_modes(meshes, inp):
+    """Warm starts (both hybrid LSMR semantics) and resume, with and without
+    reorth, on the wide grid; a reorth mismatch and a changed x0 refused."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        hybrid_lsmr_sharded_2d, hybrid_lsqr_sharded_2d, lsmr_sharded_2d,
+        lsqr_sharded_2d)
+
+    Ad, _, b, xt = sparse_pair(64, 32, seed=41)
+    mesh, t = meshes[WIDE], _tiles(Ad, WIDE)
+    x0 = (xt + 0.2 * np.random.default_rng(7).standard_normal(xt.shape)
+          ).astype(np.float32)
+    out = {}
+    for name, f, kw in (
+            ("lsqr", lsqr_sharded_2d, {}), ("lsmr", lsmr_sharded_2d, {}),
+            ("hybrid_lsqr", hybrid_lsqr_sharded_2d, {"lam": 1e-2}),
+            ("hybrid_lsmr", hybrid_lsmr_sharded_2d, {"lam": 1e-2}),
+            ("hybrid_lsmr full", hybrid_lsmr_sharded_2d,
+             {"lam": 1e-2, "x0_reg": "full"})):
+        out[f"x0 {name}"] = _gkb(f(t, b, xt, tol=0.0, maxit=8, mesh=mesh,
+                                   x0=x0, **kw))
+    x0 = (xt + 0.2 * np.random.default_rng(9).standard_normal(xt.shape)
+          ).astype(np.float32)
+    for name, f, kw in (("lsqr", lsqr_sharded_2d, {}),
+                        ("lsmr", lsmr_sharded_2d, {}),
+                        ("hybrid_lsqr", hybrid_lsqr_sharded_2d,
+                         {"lam": 1e-2})):
+        for reorth in (False, True):
+            kws = dict(mesh=mesh, x0=x0, reorth=reorth, tol=0.0, **kw)
+            part = f(t, b, xt, maxit=4, **kws)
+            out[f"resume {name} {reorth}"] = {
+                "full": _gkb(f(t, b, xt, maxit=8, **kws)),
+                "resumed": _gkb(f(t, b, xt, maxit=8, resume_from=part.state,
+                                  **kws))}
+        out[f"resume {name} reorth mismatch"] = _error(lambda: f(
+            t, b, xt, maxit=8, mesh=mesh, x0=x0, reorth=False,
+            resume_from=part.state, **kw))
+        out[f"resume {name} x0 changed"] = _error(lambda: f(
+            t, b, xt, maxit=8, mesh=mesh, x0=2.0 * x0, reorth=True,
+            resume_from=part.state, **kw))
+    return out
+
+
+def tcase_batched(meshes, inp):
+    """The 2-D serving batch, BA and AB with warm starts, deferred, and the
+    forward B layout, on the square grid; the NCCL calls of R=3 and R=1
+    per axis."""
+    from hybrid_gmres_tpu_torch.parallel import (
+        ab_gmres_sharded_batched_2d, ba_gmres_sharded_batched_2d,
+        tile_backprojector_forward)
+
+    Ad, Bd, b, xt = batched_pair(seed=31)
+    mesh = meshes[SQUARE]
+    A_t, BT_t = _tiles(Ad, SQUARE), _tiles(Bd.T, SQUARE)
+    x0 = (xt + 0.1 * np.random.default_rng(2).standard_normal(xt.shape)
+          ).astype(np.float32)
+    kw = dict(tol=0.0, maxit=6, lam=1e-3, mesh=mesh, x0=x0)
+    out = {}
+    for kind, f in (("ba", ba_gmres_sharded_batched_2d),
+                    ("ab", ab_gmres_sharded_batched_2d)):
+        out[kind] = _bres(f(A_t, BT_t, b, xt, **kw))
+        out[f"{kind} deferred"] = _bres(f(A_t, BT_t, b, xt,
+                                          defer_histories=True, **kw))
+    out["ba forward"] = _bres(ba_gmres_sharded_batched_2d(
+        A_t, None, b, xt, B_tiles=tile_backprojector_forward(
+            _csr(Bd), *SQUARE), **kw))
+    axes = [mesh.axis("rows"), mesh.axis("cols")]
+    for R in (3, 1):
+        before = [_calls(a) for a in axes]
+        ba_gmres_sharded_batched_2d(A_t, BT_t, b[:, :R], xt[:, :R],
+                                    **dict(kw, x0=x0[:, :R]))
+        out[f"calls R={R}"] = np.stack([_calls(a) - c
+                                        for a, c in zip(axes, before)])
+    return out
+
+
+def tcase_converted(meshes, inp):
+    """The BA 2-D solver on tiles carried over from the JAX package."""
+    from hybrid_gmres_tpu_torch.parallel import ba_gmres_sharded_pallas_2d
+    from hybrid_gmres_tpu_torch.utils.convert import tiled_panels_from_numpy
+
+    A_leaves, BT_leaves = inp["converted_2d"]
+    _, _, b, xt = sparse_pair(64, 32, seed=23)
+    return _res(ba_gmres_sharded_pallas_2d(
+        tiled_panels_from_numpy(**A_leaves, device="cpu"),
+        tiled_panels_from_numpy(**BT_leaves, device="cpu"), b, xt, tol=0.0,
+        maxit=6, lam=1e-3, mesh=meshes[SQUARE]))
+
+
+def tcase_dryrun(meshes, inp):
+    """The dry run on the 4 ranks: the tags of every tier it held."""
+    from hybrid_gmres_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    return {"tags": dryrun_multichip(P, device="cpu"),
+            "wrong_size": _error_any(lambda: dryrun_multichip(
+                P + 1, device="cpu"))}
+
+
+def _error_any(call):
+    try:
+        call()
+    except (RuntimeError, ValueError) as e:
+        return type(e).__name__
+    return "no error"
+
+
+CASES_2D = {name[6:]: fn for name, fn in globals().items()
+            if name.startswith("tcase_")}
+
+
 def _worker(rank, port, inputs, queue, group):
     import torch
     import torch.distributed as dist
 
-    from hybrid_gmres_tpu_torch.parallel import make_mesh
+    from hybrid_gmres_tpu_torch.parallel import make_mesh, make_mesh_2d
 
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -830,8 +1136,10 @@ def _worker(rank, port, inputs, queue, group):
     out = {}
     try:
         mesh = make_mesh(device="cpu")
-        for name, fn in {"cases": CASES,
-                         "solvers": SOLVER_CASES}[group].items():
+        if group == "2d":
+            mesh = {g: make_mesh_2d(g, device="cpu") for g in GRIDS}
+        for name, fn in {"cases": CASES, "solvers": SOLVER_CASES,
+                         "2d": CASES_2D}[group].items():
             try:
                 out[name] = _np(fn(mesh, inputs))
             except Exception as e:  # recorded; the test of the case fails
@@ -844,8 +1152,9 @@ def _worker(rank, port, inputs, queue, group):
 
 def spawn(inputs, timeout=300, group="cases"):
     """Run every case of ``group`` (``"cases"``: :data:`CASES`,
-    ``"solvers"``: :data:`SOLVER_CASES`) on ``P`` gloo ranks; returns each
-    rank's results, in rank order."""
+    ``"solvers"``: :data:`SOLVER_CASES`, ``"2d"``: :data:`CASES_2D` on the
+    meshes of :data:`GRIDS`) on ``P`` gloo ranks; returns each rank's
+    results, in rank order."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
