@@ -4,12 +4,14 @@
     python3 chip_smoke.py             # every phase (one H100, ~10 minutes)
     python3 chip_smoke.py --kernels   # build and kernel phases only
     python3 chip_smoke.py --sharded   # build and the three sharded phases
+    python3 chip_smoke.py --float     # build, float_forms and entry
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
 libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
 the row-packed forms, these also on int4 nibble-packed forms) and drives
 its path families on the Morton-ordered int8 fan-beam CT operators at n=64
-(180x180 rays) and n=128 (360x360 rays), and on their int4 twins:
+(180x180 rays) and n=128 (360x360 rays), on their int4 twins and on their
+bfloat16 and float32 twins (the JAX package's default storage type):
 
   * the single solve — hybrid BA-GMRES (maxit=100, lam=1e-2, fused
     residual), the scenario of ``bench.py``, through the redesigned K1
@@ -137,11 +139,12 @@ Phases:
      against their plain versions, twice, column j of K2 (K4) bit-equal to
      K1 (K3), the library call on the int4 diag(s) Q, timed beside the int8
      kernel against the int4 form's bound; the forms' bytes against the
-     int8 forms'; at n=64 the single solve (201 int4 K1 launches; history
-     against the float64 host solve on the same int4 matrices; the gate
-     0.4328 x 1.03), the serving batch R=8 deferred (201 K2), ``lsqr`` and
-     ``lsqr_batched`` R=8 (counts from the code), their column 0 against
-     the single solves;
+     int8 forms'; at n=64 the paths of phase 15 (``phase_variant_path``)
+     on the int4 operators: the single solve (201 int4 K1 launches; the
+     gate 0.4328 x 1.03), the serving batch R=8 deferred (201 K2),
+     ``lsqr`` and ``lsqr_batched`` R=8 (counts from the code), each held
+     to the float64 host solve on the values the int4 forms hold, column 0
+     of each batch to its single solve, walls in turns with int8;
  12. sharded (after int4, at n=64 and n=128): a one-rank NCCL group;
      BA and AB (n=128: MAXIT steps; n=64: 25), transposed (``BT_panels``)
      and forward (``B_panels``) layouts, on p=1 builds of
@@ -191,6 +194,26 @@ Phases:
      call.  The n=128 tiles are packed by a pool of worker processes
      started after the n=128 kernel phases, beside phase 12's packing.
 
+ 15. float_forms (after int4, at n=64 and n=128): ``ct_gpu_operators`` with
+     ``dtype="bfloat16"`` and ``"float32"`` (at n=64 the call on the card,
+     its forms bit-equal to a host build; at n=128 the host build of a
+     pool of worker processes started before the n=64 lambda path, moved
+     to the card), the redesigned K1-K4 on their forms as on the int4 ones
+     (with every gather and block size of K2/K4 at R=8 timed against the
+     default, and the storage type's registers and spills from phase 2);
+     at n=64 the single solve (201 K1), the serving batch R=8 deferred
+     (201 K2), ``lsqr`` (101 K1, 101 K3) and ``lsqr_batched`` R=8 (101 K2,
+     101 K4), at n=128 the single solve: each with its launches, its peak
+     memory, walls in turns with the int8 twin, held to a float64 host
+     solve on the values its forms hold (decoded on the host, independent
+     of the kernels) and to its gate, which that host solve decides when
+     the card misses it;
+ 16. entry (after float_forms at n=64): ``hybrid_gmres_tpu_torch.entry``'s
+     ``fn(*example_args)`` on the card (CT n=32, int8, fused, 20 steps: 41
+     K1 launches), its residual history against the float64 host solve on
+     the same int8 matrices and against the CPU branch (dense float32,
+     ``entry(device="cpu")``), its wall beside ``dispatch_floor_seconds``.
+
 The peak device memory of each solve path (``max_memory_allocated``, reset
 before the path) is printed after it (``memory``) and all together
 (``memory_peaks``), once the kernel phases' plain-version caches are
@@ -202,11 +225,13 @@ row-major block) against its plain version (in column chunks), column j
 bit-equal to the redesigned K1, timed beside the library call and the bound.
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
-record ``{"kernels": [...]}`` (the int4 variants as entries of their own),
+record ``{"kernels": [...]}`` (the int4, bfloat16 and float32 variants as
+entries of their own),
 the card's name and power limit, and the result ``{"ok": true, "device":
 {...}}``.  ``--kernels`` stops after phase 3 and the int4 kernel checks (at
 both sizes) and prints neither; ``--sharded`` runs only phases 12-14
-(their float64 references computed for them) and prints neither.
+(their float64 references computed for them) and prints neither;
+``--float`` runs only phases 15-16 and prints neither.
 """
 
 from __future__ import annotations
@@ -427,9 +452,14 @@ def phase_device():
     return card
 
 
+# library -> its variants' registers and spills, from the build phase
+BUILD_VARIANTS = {}
+
+
 def phase_build():
     """Compile the kernel libraries (one nvcc each, started together, with
-    the register and spill report of ptxas) and load them."""
+    the register and spill report of ptxas) and load them; the report goes
+    to BUILD_VARIANTS."""
     from hybrid_gmres_tpu_torch.ops._build import (LIBRARIES, NVCC_FLAGS,
                                                    build_all, load_library)
 
@@ -448,6 +478,7 @@ def phase_build():
             elif "Used" in ln and "registers" in ln and variants:
                 variants[-1]["registers"] = int(
                     ln.split("Used")[1].split("registers")[0])
+        BUILD_VARIANTS[name] = variants
         say("build", kernel=f"{name}.cu", seconds=seconds, variants=variants,
             flags=" ".join(NVCC_FLAGS))
     say("build_all", seconds=time.perf_counter() - t0)
@@ -529,11 +560,15 @@ def library_csr(csr, transpose=False, qmax=127):
     """The library's format of the same matrix (or of its transpose): a
     float32 ``torch.sparse`` CSR tensor on the card (cuSPARSE), 32-bit
     indices; ``qmax``: the quantization of the panel (7 for int4)."""
+    q = quantized_csr(csr.astype(np.float64), qmax)
+    return library_of(q.T.tocsr() if transpose else q)
+
+
+def library_of(q):
+    """A scipy CSR matrix as a float32 ``torch.sparse`` CSR tensor on the
+    card (cuSPARSE), 32-bit indices."""
     import torch
 
-    q = quantized_csr(csr.astype(np.float64), qmax)
-    if transpose:
-        q = q.T.tocsr()
     return torch.sparse_csr_tensor(
         torch.as_tensor(q.indptr.astype(np.int32), device="cuda"),
         torch.as_tensor(q.indices.astype(np.int32), device="cuda"),
@@ -1282,8 +1317,8 @@ def solve_batched(P, b, defer, x0=None, maxit=MAXIT, lam=LAM):
 
 def scipy_operator(csr, qmax=127):
     """The float64 host operator diag(s) Q of an int8 panel of ``csr`` (of
-    an int4 one with ``qmax=7``): scipy CSR products, independent of the
-    kernels."""
+    an int4 one with ``qmax=7``; ``csr`` itself with ``qmax=None``): scipy
+    CSR products, independent of the kernels."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.linear_operator import LinearOperator
@@ -1292,7 +1327,7 @@ def scipy_operator(csr, qmax=127):
         dtype, device = torch.float64, torch.device("cpu")
 
         def __init__(self, csr):
-            self.csr = quantized_csr(csr, qmax)
+            self.csr = quantized_csr(csr, qmax) if qmax else csr.tocsr()
             self.csr_t = self.csr.T.tocsr()
             self.shape = self.csr.shape
 
@@ -1306,14 +1341,14 @@ def scipy_operator(csr, qmax=127):
 
 
 def host_reference(prob, ray_perm, pix_perm, b, qmax=127, kind="ba",
-                   transposed=False, maxit=MAXIT):
+                   transposed=False, maxit=MAXIT, hist="err_hist"):
     """The same solve in float64 on the host, independent of the kernels:
     scipy CSR products with the exactly quantized operators diag(s) Q (the
     matrices the int8 panels hold; the int4 ones with ``qmax=7``) and the
     port's float64 single-RHS solver (``kind``: "ba" or "ab").
     ``transposed``: B quantized per row of B^T, as the sharded solvers'
-    transposed layout holds it, instead of per pixel.  Returns the error
-    history (``maxit`` steps)."""
+    transposed layout holds it, instead of per pixel.  Returns the history
+    ``hist`` (the error history by default; ``maxit`` steps)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.ordering import reorder_pair
@@ -1327,7 +1362,7 @@ def host_reference(prob, ray_perm, pix_perm, b, qmax=127, kind="ba",
         scipy_operator(A, qmax), B_op, torch.from_numpy(b.astype(np.float64)),
         torch.from_numpy(prob.x_true[pix_perm]), tol=0.0, maxit=maxit,
         lam=LAM, residual="fused")
-    return r.err_hist.numpy()
+    return getattr(r, hist).numpy()
 
 
 GKB_SINGLE = ("lsqr", "hybrid_lsqr", "lsmr", "hybrid_lsmr")
@@ -2918,57 +2953,80 @@ def phase_drivers_rest(prob, ray_perm, pix_perm):
 # int4 (nibble-packed forms) and the sharded path (p=1 NCCL, shard_view)
 # --------------------------------------------------------------------------
 
-# The int4 gate: bench.py gates an int4 run with int8's band.
-INT4_GATES = {64: 0.4328 * 1.03}
-# the int4 and sharded phases' multi-RHS width
+# the int4, float and sharded phases' multi-RHS width
 RHS = 8
 
 
-def int4_operators(P):
+def int4_operators(P, refs=False):
     """The int4 operators of P's problem (``ct_gpu_operators(dtype="int4")``
     on the card, forward panels only) in a namespace the solve helpers
-    take, with the seconds their packing took."""
+    take, with the seconds their packing took; with ``refs`` also the
+    float64 host solves on the values their forms hold
+    (:func:`float_host_refs`), as :func:`phase_variant_path` takes them."""
     from hybrid_gmres_tpu_torch.problems.ct import ct_gpu_operators
 
     t0 = time.perf_counter()
     A4, B4 = ct_gpu_operators(P.prob, dtype="int4", device="cuda")[:2]
-    return SimpleNamespace(**{**vars(P), "A_op": A4, "B_op": B4,
-                              "A_adj": None, "B_adj": None,
-                              "packing_s": time.perf_counter() - t0})
+    P4 = SimpleNamespace(**{**vars(P), "A_op": A4, "B_op": B4,
+                            "A_adj": None, "B_adj": None, "dtype": "int4",
+                            "packing_s": time.perf_counter() - t0})
+    if refs:
+        t0 = time.perf_counter()
+        P4.refs = float_host_refs(A4, B4, P.b_host,
+                                  P.prob.x_true[P.pix_perm], gkb=True)
+        P4.pool = dict(f64_refs_s=time.perf_counter() - t0)
+    return P4
 
 
 def int4_kernels(P, P4):
-    """The redesigned K1-K4 on the int4 forms of one size: each against its
-    plain version on the card, twice (the same bits), K2's (K4's) column j
-    against K1 (K3) on column j (the same bits), the library call (float32
-    ``torch.sparse`` CSR of the int4 diag(s) Q), timed in turns beside the
-    int8 kernel on the same input, against the bound from the int4 form's
-    live bytes.  The int4 forms' bytes against the int8 forms'.  Returns
-    the records of (K1, K3, K2, K4), A's panel then B's."""
+    """The redesigned K1-K4 on the int4 forms of one size
+    (:func:`form_kernels`), the library call on the int4 diag(s) Q."""
+    return form_kernels(P, P4, "int4", lambda csr, op: (
+        library_csr(csr, qmax=7), library_csr(csr, transpose=True, qmax=7)))
+
+
+def form_kernels(P, V, variant, library, sweep=False):
+    """The redesigned K1-K4 on the forms of one size's ``variant``
+    operators ``V`` (``"int4"``, ``"bfloat16"``, ``"float32"``): each
+    against its plain version on the card, twice (the same bits), K2's
+    (K4's) column j against K1 (K3) on column j (the same bits), the
+    library call (``library(csr, op)``: the matrix and its transpose as
+    ``torch.sparse`` CSR), timed in turns beside the int8 kernel on the
+    same input, against the bound from the form's live bytes, with the
+    registers and spills of the storage type's variants (``spills``).  The
+    forms' bytes against the int8 forms' (smaller for int4).  ``sweep``:
+    K2 and K4 at R=8 also in every gather and block size, the same bits,
+    each timed, the fastest against the default (``_gather_for``,
+    ``_threads_for``).  Returns the records of (K1, K3, K2, K4), A's panel
+    then B's."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        row_matmat, row_matmat_plain, row_matvec, row_matvec_plain,
-        row_rmatmat, row_rmatmat_plain, row_rmatvec, row_rmatvec_plain)
+        _gather_for, _threads_for, row_matmat, row_matmat_plain, row_matvec,
+        row_matvec_plain, row_rmatmat, row_rmatmat_plain, row_rmatvec,
+        row_rmatvec_plain)
 
     rng = np.random.default_rng(4)
     recs = {k: [] for k in ("K1", "K3", "K2", "K4")}
-    for tag, op4, op8, csr in (("A", P4.A_op, P.A_op, P.A_csr),
-                               ("B", P4.B_op, P.B_op, P.B_csr)):
-        m, n = op4.shape
-        s4, s8 = op4.fwd_scale, op8.fwd_scale
-        panel = f"n={P.n} {tag} int4"
-        forms = dict(rows_mb=op4.fwd_rows.nbytes / 1e6,
-                     rows_t_mb=op4.adj_rows.nbytes / 1e6,
+    regs = spills(variant)
+    for tag, opv, op8, csr in (("A", V.A_op, P.A_op, P.A_csr),
+                               ("B", V.B_op, P.B_op, P.B_csr)):
+        m, n = opv.shape
+        sv, s8 = opv.fwd_scale, op8.fwd_scale
+        panel = f"n={P.n} {tag} {variant}"
+        forms = dict(rows_mb=opv.fwd_rows.nbytes / 1e6,
+                     rows_t_mb=opv.adj_rows.nbytes / 1e6,
                      int8_rows_mb=op8.fwd_rows.nbytes / 1e6,
                      int8_rows_t_mb=op8.adj_rows.nbytes / 1e6)
-        check(op4.fwd_rows.nbytes < op8.fwd_rows.nbytes and
-              op4.adj_rows.nbytes < op8.adj_rows.nbytes,
-              f"{panel}: the int4 forms are not smaller than the int8 forms "
-              f"({forms})")
-        say("int4_forms", panel=panel, **forms,
-            ratio=op4.fwd_rows.nbytes / op8.fwd_rows.nbytes,
-            ratio_t=op4.adj_rows.nbytes / op8.adj_rows.nbytes)
+        check(variant != "int4" or (
+            opv.fwd_rows.nbytes < op8.fwd_rows.nbytes and
+            opv.adj_rows.nbytes < op8.adj_rows.nbytes),
+            f"{panel}: the int4 forms are not smaller than the int8 forms "
+            f"({forms})")
+        say("forms", panel=panel, **forms,
+            ratio=opv.fwd_rows.nbytes / op8.fwd_rows.nbytes,
+            ratio_t=opv.adj_rows.nbytes / op8.adj_rows.nbytes,
+            spills=regs, int8_spills=spills("int8"))
         x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
                             device="cuda")
         u = torch.as_tensor(rng.standard_normal(m), dtype=torch.float32,
@@ -2978,17 +3036,16 @@ def int4_kernels(P, P4):
         U = torch.as_tensor(rng.standard_normal((m, RHS)),
                             dtype=torch.float32, device="cuda")
         Xt, Ut = X.T.contiguous().T, U.T.contiguous().T  # solvers' layout
-        lib, lib_t = library_csr(csr, qmax=7), library_csr(
-            csr, transpose=True, qmax=7)
+        lib, lib_t = library(csr, opv)
         for kernel, rp, rp8, fn, plain, single, v, lv, args, args8, R in (
-                ("K1", op4.fwd_rows, op8.fwd_rows, row_matvec,
-                 row_matvec_plain, None, x, lib, (s4,), (s8,), 1),
-                ("K3", op4.adj_rows, op8.adj_rows, row_rmatvec,
-                 row_rmatvec_plain, None, u, lib_t, (s4,), (s8,), 1),
-                ("K2", op4.fwd_rows, op8.fwd_rows, row_matmat,
-                 row_matmat_plain, row_matvec, Xt, lib, (s4,), (s8,), RHS),
-                ("K4", op4.adj_rows, op8.adj_rows, row_rmatmat,
-                 row_rmatmat_plain, row_rmatvec, Ut, lib_t, (s4,), (s8,),
+                ("K1", opv.fwd_rows, op8.fwd_rows, row_matvec,
+                 row_matvec_plain, None, x, lib, (sv,), (s8,), 1),
+                ("K3", opv.adj_rows, op8.adj_rows, row_rmatvec,
+                 row_rmatvec_plain, None, u, lib_t, (sv,), (s8,), 1),
+                ("K2", opv.fwd_rows, op8.fwd_rows, row_matmat,
+                 row_matmat_plain, row_matvec, Xt, lib, (sv,), (s8,), RHS),
+                ("K4", opv.adj_rows, op8.adj_rows, row_rmatmat,
+                 row_rmatmat_plain, row_rmatvec, Ut, lib_t, (sv,), (s8,),
                  RHS)):
             label = f"{panel}: {kernel} redesigned"
             got, want, again = fn(rp, v, *args), plain(rp, v, *args), \
@@ -3020,8 +3077,9 @@ def int4_kernels(P, P4):
             b_ms, b_by = bound([work])
             ms = (k1 + k2) / 2
             rec = dict(
-                panel=panel, shape=[m, n], kernel=f"{kernel} redesigned int4",
-                R=R, ms=ms, plain_ms=(p1 + p2) / 2, int8_ms=(i1 + i2) / 2,
+                panel=panel, shape=[m, n],
+                kernel=f"{kernel} redesigned {variant}", R=R, ms=ms,
+                plain_ms=(p1 + p2) / 2, int8_ms=(i1 + i2) / 2,
                 library_ms=time_ms(lambda: lv @ v), bound_ms=b_ms,
                 bound_by=b_by, share_of_bound=b_ms / ms,
                 int8_bound_ms=bound([row_work(rp8, m, R=R)])[0], work=work,
@@ -3030,76 +3088,462 @@ def int4_kernels(P, P4):
                 library_max_rel_diff=lib_diff, form_shape=list(rp.shape),
                 lanes=rp.lanes, fill=rp.fill, live=rp.live,
                 form_mb=rp.nbytes / 1e6, int8_form_mb=rp8.nbytes / 1e6,
-                index_bits=32 if rp.wide else 16)
+                index_bits=32 if rp.wide else 16,
+                spills=None if regs is None else regs.get(
+                    "K1r/K3r" if R == 1 else "K2r/K4r"))
+            if sweep and R > 1:
+                variants = variants_for(v)
+                diff = max(float((got - fn(rp, v, *args, **kw)).abs().max())
+                           for kw in variants.values())
+                check(diff == 0.0, f"{label}: a gather or block size "
+                      f"changes the bits by {diff:.3e}")
+                gather = _gather_for(rp, v, scaled=kernel == "K4" and
+                                     sv is not None)
+                default = f"{gather}/{_threads_for(rp, gather)}"
+                variant_ms = {name: time_ms(partial(fn, rp, v, *args, **kw))
+                              for name, kw in variants.items()}
+                best = min(variant_ms, key=variant_ms.get)
+                rec.update(default_variant=default, variant_ms=variant_ms,
+                           best_variant=best, variant_beats_default=(
+                               variant_ms[best] < (1 - VARIANT_MARGIN)
+                               * variant_ms[default]))
             say("kernel_vs_plain", **rec)
             recs[kernel].append(rec)
-    release_plain_caches(P4)
+    release_plain_caches(V)
     release_plain_caches(P)
     return recs["K1"], recs["K3"], recs["K2"], recs["K4"]
 
 
-def phase_int4_path(P4, int8_its, int8_min):
-    """The n=64 int4 main path and its multi-RHS and GKB twins: each run
-    with the counts reset before and read after.  The single solve
-    (``ba_gmres``, lam=1e-2, 100 steps, fused) through the int4 K1 (201
-    launches) against the float64 host solve on the same int4-quantized
-    matrices (first REF_K entries to REF_RTOL, minimum to REF_MIN_RTOL) and
-    the gate; the serving batch (R=8, deferred) through the int4 K2 (201),
-    column 0 against the single solve; ``lsqr`` through the int4 K1 and K3,
-    ``lsqr_batched`` (R=8) through the int4 K2 and K4, counts from the code,
-    column 0 against ``lsqr``.  Returns the launches of (K1r, K3r, K2r,
-    K4r), each from its run."""
+# Phase float_forms: the CT operators in the JAX package's default storage
+# type (``ct_tpu_operators(dtype="bfloat16")``) and in float32.  Neither has
+# a row scale, so every product runs its kernel's unscaled branch.
+FLOAT_DTYPES = ("bfloat16", "float32")
+# the worker processes that pack the float operators and solve on their
+# values in float64 on the host (at n=128 a pair takes ~30 s to pack)
+FLOAT_WORKERS = 2
+# a gather or block size other than the default that is faster by more
+# than this share at R=8 is flagged (``variant_beats_default``)
+VARIANT_MARGIN = 0.2
+# entry()'s int8 fused solve on the card against its CPU branch (dense
+# float32 operators, true residual): the per-row int8 rounding moves the
+# residual history by 7.1e-5 on the CPU port (20 steps)
+ENTRY_CPU_RTOL = 1e-4
+
+
+def form_csr(rp, scale=None):
+    """The matrix a row-packed form holds, read back from its stored values
+    (``RowPacked.entry_values``, decoded on the host), times
+    ``diag(scale)`` when given: float64 scipy CSR, independent of the
+    kernels.  A padding entry (a zero in a column its row holds) adds
+    nothing."""
+    import scipy.sparse as sp
     import torch
 
-    n = P4.n
+    from hybrid_gmres_tpu_torch.ops.sparse import VEC
+
+    rp = rp.to("cpu")
+    nv = (rp.vec_off[1:] - rp.vec_off[:-1]).long()
+    rows = rp.row_map.long()[torch.repeat_interleave(
+        torch.arange(nv.shape[0]), nv)].repeat_interleave(VEC)
+    q = sp.csr_matrix((rp.entry_values().to(torch.float64).numpy(),
+                       (rows.numpy(), rp.col_index().numpy())),
+                      shape=rp.shape)
+    q.eliminate_zeros()
+    if scale is not None:
+        q = sp.diags(scale.cpu().double().numpy()) @ q
+    return q.tocsr()
+
+
+def float_host_refs(A_op, B_op, b, x_true, gkb):
+    """The float64 host solves on the matrices the operators' forward
+    forms hold (:func:`form_csr`): BA-GMRES (lam=1e-2, fused, MAXIT
+    steps) and, with ``gkb``, ``lsqr``.  Returns their error histories by
+    solver."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.solvers.gmres import ba_gmres
+    from hybrid_gmres_tpu_torch.solvers.lsqr import lsqr
+
+    A = scipy_operator(form_csr(A_op.fwd_rows, A_op.fwd_scale), qmax=None)
+    B = scipy_operator(form_csr(B_op.fwd_rows, B_op.fwd_scale), qmax=None)
+    b64 = torch.from_numpy(b.astype(np.float64))
+    x64 = torch.as_tensor(x_true, dtype=torch.float64)
+    refs = {"ba": ba_gmres(A, B, b64, x64, tol=0.0, maxit=MAXIT, lam=LAM,
+                           residual="fused").err_hist.numpy()}
+    if gkb:
+        refs["lsqr"] = lsqr(A, b64, x64, tol=0.0,
+                            maxit=MAXIT).err_hist.numpy()
+    return refs
+
+
+def float_job(n, dtype, path):
+    """One job of a float pool (a worker process): CT n assembled, its
+    operators packed on the host (``ct_gpu_operators(dtype=...,
+    device="cpu")``) and saved to ``path`` (``torch.save``: a file, not
+    the pool's pipe, carries the gigabytes of an n=128 pair), and the
+    float64 host solves on their forms' values (:func:`float_host_refs`;
+    ``lsqr`` at n=64).  Returns (``path``, the references, the seconds each
+    part took)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.problems.ct import (ct_gpu_operators,
+                                                    ct_mismatched)
+
+    torch.set_num_threads(2)
+    ang = 180 * n // 64
+    t0 = time.perf_counter()
+    prob = ct_mismatched(n=n, n_angles=ang, n_det=ang)
+    A_op, B_op, _, _, ray_perm, pix_perm = ct_gpu_operators(
+        prob, dtype=dtype, device="cpu")
+    torch.save((A_op, B_op), path)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = noisy_sinograms(SimpleNamespace(prob=prob, ray_perm=ray_perm),
+                        [0])[:, 0]
+    refs = float_host_refs(A_op, B_op, b, prob.x_true[pix_perm],
+                           gkb=n == 64)
+    return path, refs, dict(assembly_and_packing_s=pack_s,
+                            f64_refs_s=time.perf_counter() - t0)
+
+
+def start_float_builds(n):
+    """A pool of FLOAT_WORKERS spawned processes running :func:`float_job`
+    for size n and each of FLOAT_DTYPES, into a temporary directory.
+    Started before ``make_problem(n)``, whose assembly and packing (host
+    work, timed by nothing) the jobs run beside; :func:`float_results`
+    waits for them before anything is timed (a worker beside a timed phase
+    slows its walls and kernel times many-fold)."""
+    import multiprocessing
+    import os
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_float_")
+    pool = ProcessPoolExecutor(FLOAT_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {dtype: pool.submit(float_job, n, dtype, os.path.join(
+            tmp.name, f"{n}_{dtype}.pt")) for dtype in FLOAT_DTYPES}
+    except BaseException:
+        pool.shutdown(wait=True, cancel_futures=True)
+        tmp.cleanup()
+        raise
+    return n, pool, jobs, tmp
+
+
+def float_results(builds):
+    """Wait for the jobs of :func:`start_float_builds` and shut its pool
+    down.  Returns ``{dtype: (path, refs, seconds)}``; the files live in
+    the temporary directory of ``builds``, removed when that is dropped
+    (at the latest when the script exits)."""
+    n, pool, jobs, tmp = builds
+    t0 = time.perf_counter()
+    try:
+        out = {dtype: job.result(timeout=900) for dtype, job in jobs.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    say("float_builds", n=n, wait_s=time.perf_counter() - t0,
+        jobs={dtype: secs for dtype, (_, _, secs) in out.items()})
+    return out
+
+
+def same_form(fa, fb):
+    """Two row-packed forms hold the same entries in the same places
+    (``fb`` compared on the device of ``fa``)."""
+    import torch
+
+    return ((fa.shape, fa.lanes, fa.live) == (fb.shape, fb.lanes, fb.live)
+            and all(torch.equal(getattr(fa, f),
+                                getattr(fb, f).to(getattr(fa, f).device))
+                    for f in ("vals", "cols", "vec_off", "row_map")))
+
+
+def float_operators(P, dtype, job):
+    """The ``dtype`` operators of P's problem on the card, in a namespace
+    the solve helpers take, with their float64 host references (``refs``;
+    ``job``: what :func:`float_job` returned).  At n=64
+    ``ct_gpu_operators(dtype=..., device="cuda")``, the user's call, whose
+    forms must equal the pool's host build bit for bit; at n=128 the
+    pool's host build moved to the card (``BlockELLOperator.to``: the
+    forms, the panels stay on the host)."""
+    import os
+
+    import torch
+
+    from hybrid_gmres_tpu_torch.problems.ct import ct_gpu_operators
+
+    path, refs, secs = job
+    t0 = time.perf_counter()
+    A_h, B_h = torch.load(path, weights_only=False)
+    os.remove(path)
+    if P.n == 64:
+        A_op, B_op = ct_gpu_operators(P.prob, dtype=dtype, device="cuda")[:2]
+        for tag, card, host in (("A", A_op, A_h), ("B", B_op, B_h)):
+            check(same_form(card.fwd_rows, host.fwd_rows) and
+                  same_form(card.adj_rows, host.adj_rows),
+                  f"n=64 {tag} {dtype}: the forms built for the card differ "
+                  "from the host build")
+    else:
+        A_op, B_op = A_h.to("cuda"), B_h.to("cuda")
+    torch.cuda.synchronize()
+    want = getattr(torch, dtype)
+    for op in (A_op, B_op):
+        check(op.storage_dtype == want and op.fwd_scale is None and
+              op.fwd_rows.dtype == want and op.adj_rows.dtype == want,
+              f"n={P.n} {dtype}: the operator stores {op.storage_dtype}")
+    return SimpleNamespace(**{
+        **vars(P), "A_op": A_op, "B_op": B_op, "A_adj": None, "B_adj": None,
+        "dtype": dtype, "refs": refs, "pool": secs,
+        "packing_s": time.perf_counter() - t0})
+
+
+def spills(dtype):
+    """Registers and spills of the ``row_spmv.cu`` variants of one storage
+    type (``"int4"``, ``"int8"``, ``"bfloat16"``, ``"float32"``), from the
+    build phase's ptxas report: ``{"K1r/K3r": [...], "K2r/K4r": [...]}``
+    (None when this run built nothing)."""
+    import re
+
+    code = {"float32": "f", "bfloat16": "13__nv_bfloat16", "int8": "a"}
+    out = {"K1r/K3r": [], "K2r/K4r": []}
+    for v in BUILD_VARIANTS.get("row_spmv", []):
+        name = v["entry"]
+        kernel = ("K1r/K3r" if "row_spmv_kernel" in name else
+                  "K2r/K4r" if "row_spmm_kernel" in name else None)
+        if kernel is None:
+            continue
+        t = name.split("kernelI", 1)[1]
+        if (t.startswith(code[dtype]) if dtype in code else
+                not any(t.startswith(c) for c in code.values())):
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", v["spill"])]
+            out[kernel].append(dict(registers=v.get("registers"),
+                                    stack=nums[0], spill_stores=nums[1],
+                                    spill_loads=nums[2]))
+    if not any(out.values()):
+        return None
+    return {k: dict(variants=len(v),
+                    registers=sorted({e["registers"] for e in v}),
+                    max_spill_stores=max(e["spill_stores"] for e in v),
+                    max_spill_loads=max(e["spill_loads"] for e in v),
+                    spilling=sum(e["spill_stores"] > 0 for e in v))
+            for k, v in out.items() if v}
+
+
+def in_turns(label, runs, reps=5):
+    """Median milliseconds of each named solve in ``runs`` (name -> a call),
+    the solves taking turns (:func:`alternating_ms`), and it/s at MAXIT
+    steps."""
+    ms = alternating_ms(tuple(runs.values()), reps)
+    out = {}
+    for name, times in zip(runs, ms):
+        med = float(np.median(times))
+        out[name] = dict(solve_ms_median=med, solve_ms_min=min(times),
+                         solve_ms_max=max(times),
+                         iters_per_s=MAXIT / (med / 1e3))
+    say("in_turns", label=label, **out)
+    return out
+
+
+def gate_or_host(min_err, gate, host_min, label):
+    """A quality gate that the float64 host solve on the same values
+    decides when the card misses it: both missing it put the fault on the
+    storage type's rounding, not the port (recorded, not fatal); the card
+    alone missing it is a fault."""
+    met = min_err <= gate
+    check(met or host_min > gate, f"{label}: min-over-k rel err "
+          f"{min_err:.4f} > gate {gate:.4f}, which the float64 host solve "
+          f"on the same values meets ({host_min:.4f})")
+    return dict(min_err=min_err, gate=gate, gate_met=met,
+                f64_ref_min_err=host_min, f64_ref_meets_gate=host_min <= gate)
+
+
+def phase_variant_path(P, F, full):
+    """The paths on one size's ``F.dtype`` operators (int4, bfloat16,
+    float32), each run with the counts reset before and read after, each
+    held to the float64 host solve on the values its forms hold
+    (``F.refs``, :func:`float_host_refs`): the single solve
+    (BA-GMRES, lam=1e-2, fused; 201 K1r), its gate and the host band
+    (first REF_K entries to REF_RTOL, minimum to REF_MIN_RTOL); with
+    ``full`` (n=64) also the serving batch (R=8 deferred; 201 K2r; column 0
+    to the host solve and to the single solve, every column to the serving
+    gate), ``lsqr`` (101 K1r, 101 K3r) and ``lsqr_batched`` (R=8; 101 K2r,
+    101 K4r) in GKB_BANDS of the host ``lsqr``, gated at its minimum times
+    GKB_BAND.  Each path's peak memory, and its walls taken in turns with
+    the int8 twin's.  Returns the launches of (K1r, K3r, K2r, K4r), each
+    from its path's run."""
+    import torch
+
+    n, dt = P.n, F.dtype
+    label = f"n={n} {dt}"
+    ref = F.refs["ba"]
+    with PeakMemory(f"{label} single"):
+        reset_counts()
+        r = solve(F)
+        torch.cuda.synchronize()
+        launched = counts()
+    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
+    check(launched == want, f"{label}: {LAUNCHES} launches {launched} in the "
+          f"single solve, expected {want}")
+    err = r.err_hist.cpu().numpy()
+    check(bool(np.isfinite(err).all() and torch.isfinite(r.x).all()) and
+          int(r.niters) == MAXIT, f"{label}: non-finite single solve")
+    hist, at_min = held_to(err, ref, label, "float64 host solve (its values)")
+    out = dict(n=n, dtype=dt, packing_s=F.packing_s, pool=F.pool,
+               single=dict(launches=launched, f64_ref_hist_rel_diff=hist,
+                           f64_ref_min_rel_diff=at_min,
+                           min_err_k=int(err.argmin()) + 1,
+                           bench_py_gate=BENCH_PY_GATES[n],
+                           **gate_or_host(float(err.min()), GATES[n],
+                                          float(ref.min()), label),
+                           **in_turns(f"{label} single", {
+                               "int8": lambda: solve(P),
+                               dt: lambda: solve(F)})))
+    got = [launched[4], 0, 0, 0]
+    if full:
+        b8 = torch.as_tensor(noisy_sinograms(P, range(RHS)), device="cuda")
+        with PeakMemory(f"{label} serving R={RHS}"):
+            rb, lb = counted_batched(F, b8, True, 2 * MAXIT + 1,
+                                     f"{label} serving R={RHS}")
+        errb = rb.err_hist.cpu().numpy()
+        minima = errb.min(axis=0)
+        check(bool((minima <= SERVING_GATES[n]).all()), f"{label} serving: "
+              f"minima {minima.tolist()} above {SERVING_GATES[n]:.4f}")
+        out["serving"] = dict(
+            launches=lb, min_err=minima.tolist(), gate=SERVING_GATES[n],
+            column0_vs_f64_ref=held_to(errb[:, 0], ref,
+                                       f"{label} serving column 0",
+                                       "float64 host solve"),
+            column0_vs_single=held_to(errb[:, 0], err,
+                                      f"{label} serving column 0",
+                                      "the single solve"),
+            **in_turns(f"{label} serving", {
+                "int8": lambda: solve_batched(P, b8, True),
+                dt: lambda: solve_batched(F, b8, True)}))
+        lref = F.refs["lsqr"]
+        with PeakMemory(f"{label} lsqr"):
+            rl, ll = gkb_counted("lsqr", F.A_op, F.b, F.x_true, MAXIT,
+                                 f"{label} lsqr")
+        errl = rl.err_hist.cpu().numpy()
+        lgate = float(lref.min()) * GKB_BAND
+        check(float(errl.min()) <= lgate, f"{label} lsqr: min-over-k rel "
+              f"err {errl.min():.4f} > gate {lgate:.4f}")
+        fn, _ = gkb_solver("lsqr")
+        fnb, _ = gkb_solver("lsqr_batched")
+        out["lsqr"] = dict(
+            launches=ll, min_err=float(errl.min()), gate=lgate,
+            f64_ref_min_err=float(lref.min()),
+            vs_f64_ref=held_to(errl, lref, f"{label} lsqr",
+                               "float64 host lsqr", GKB_BANDS),
+            **in_turns(f"{label} lsqr", {
+                "int8": lambda: fn(P.A_op, P.b, P.x_true, tol=0.0,
+                                   maxit=MAXIT),
+                dt: lambda: fn(F.A_op, F.b, F.x_true, tol=0.0,
+                               maxit=MAXIT)}))
+        with PeakMemory(f"{label} lsqr_batched R={RHS}"):
+            rlb, llb = gkb_counted("lsqr_batched", F.A_op, b8, F.x_true,
+                                   MAXIT, f"{label} lsqr_batched R={RHS}")
+        errlb = rlb.err_hist.cpu().numpy()
+        check(float(errlb[:, 0].min()) <= lgate, f"{label} lsqr_batched "
+              f"column 0: min-over-k rel err {errlb[:, 0].min():.4f} > gate "
+              f"{lgate:.4f}")
+        out["lsqr_batched"] = dict(
+            launches=llb, min_err=errlb.min(axis=0).tolist(),
+            column0_vs_f64_ref=held_to(errlb[:, 0], lref,
+                                       f"{label} lsqr_batched column 0",
+                                       "float64 host lsqr", GKB_BANDS),
+            column0_vs_single=held_to(errlb[:, 0], errl,
+                                      f"{label} lsqr_batched column 0",
+                                      "the single lsqr", GKB_BANDS),
+            **in_turns(f"{label} lsqr_batched", {
+                "int8": lambda: fnb(P.A_op, b8, P.x_true, tol=0.0,
+                                    maxit=MAXIT),
+                dt: lambda: fnb(F.A_op, b8, F.x_true, tol=0.0,
+                                maxit=MAXIT)}))
+        got = [launched[4], ll[5], lb[6], llb[7]]
+    out["memory"] = {k: v for k, v in MEMORY.items() if k.startswith(label)}
+    say("variant_path", **out)
+    return got
+
+
+def phase_float_forms(P, jobs):
+    """Phase float_forms at P's size, for each of FLOAT_DTYPES: the
+    operators (:func:`float_operators`; ``jobs``: :func:`float_results`),
+    the redesigned K1-K4 on their forms (:func:`form_kernels`, every
+    gather and block size timed at R=8) and the paths
+    (:func:`phase_variant_path`; n=64 all four, n=128 the single solve).
+    Returns ``{dtype: (kernel records of K1, K3, K2, K4, launches of K1r,
+    K3r, K2r, K4r)}``."""
+    import torch
+
+    out = {}
+    for dtype in FLOAT_DTYPES:
+        t0 = time.perf_counter()
+        F = float_operators(P, dtype, jobs[dtype])
+        recs = form_kernels(P, F, dtype, float_library, sweep=True)
+        launches = phase_variant_path(P, F, full=P.n == 64)
+        out[dtype] = (recs, launches)
+        say("float_forms_done", n=P.n, dtype=dtype,
+            seconds=time.perf_counter() - t0)
+        del F
+        torch.cuda.empty_cache()
+    return out
+
+
+def float_library(csr, op):
+    """(the library's matrix, its transpose): ``torch.sparse`` CSR on the
+    card of the values a float operator's forward form holds."""
+    q = form_csr(op.fwd_rows, op.fwd_scale)
+    return library_of(q), library_of(q.T.tocsr())
+
+
+def phase_entry():
+    """``hybrid_gmres_tpu_torch.entry.entry()``'s step on the card (CT
+    n=32, int8, fused, 20 steps), the counts reset before and read after:
+    41 K1r launches and nothing else; ``res_hist`` against the float64
+    host solve on the same int8 matrices (first REF_K entries to
+    REF_RTOL), and against the CPU branch (``entry(device="cpu")``: dense
+    float32, true residual) within ENTRY_CPU_RTOL; the wall of ``fn``
+    beside ``dispatch_floor_seconds``."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.entry import MAXIT as STEPS
+    from hybrid_gmres_tpu_torch.entry import N, N_ANGLES, N_DET, entry
+    from hybrid_gmres_tpu_torch.ops.ordering import morton_perm
+    from hybrid_gmres_tpu_torch.problems.ct import ct_mismatched
+    from hybrid_gmres_tpu_torch.utils.profiling import dispatch_floor_seconds
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    build_s = time.perf_counter() - t0
     reset_counts()
-    r = solve(P4)
+    x, res, niters = fn(*args)
     torch.cuda.synchronize()
     launched = counts()
-    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
-    check(launched == want, f"n={n} int4: {LAUNCHES} launches {launched} in "
-          f"the single solve, expected {want}")
-    err = r.err_hist.cpu().numpy()
-    check(bool(np.isfinite(err).all() and torch.isfinite(r.x).all()),
-          f"n={n} int4: non-finite results")
-    ms = per_call_ms(lambda: solve(P4), reps=5)
-    t0 = time.perf_counter()
-    err_ref = host_reference(P4.prob, P4.ray_perm, P4.pix_perm, P4.b_host,
-                             qmax=7)
-    ref_s = time.perf_counter() - t0
-    hist, at_min = held_to(err, err_ref, f"n={n} int4",
-                           "float64 host reference (int4 Q)")
-    min_err = float(err.min())
-    check(min_err <= INT4_GATES[n], f"n={n} int4: min-over-k rel err "
-          f"{min_err:.4f} > gate {INT4_GATES[n]:.4f}")
-    b8 = torch.as_tensor(noisy_sinograms(P4, range(RHS)), device="cuda")
-    rb, launched_b = counted_batched(P4, b8, True, 2 * MAXIT + 1,
-                                     f"n={n} int4 serving R={RHS}")
-    col0 = held_to(rb.err_hist[:, 0].cpu().numpy(), err,
-                   f"n={n} int4 serving column 0", "the single int4 solve")
-    rl, launched_l = gkb_counted("lsqr", P4.A_op, P4.b, P4.x_true, MAXIT,
-                                 f"n={n} int4 lsqr")
-    rlb, launched_lb = gkb_counted("lsqr_batched", P4.A_op, b8, P4.x_true,
-                                   MAXIT, f"n={n} int4 lsqr_batched R={RHS}")
-    lsqr_col0 = held_to(rlb.err_hist[:, 0].cpu().numpy(),
-                        rl.err_hist.cpu().numpy(),
-                        f"n={n} int4 lsqr_batched column 0",
-                        "the single int4 lsqr", bands=GKB_BANDS)
-    med = float(np.median(ms))
-    say("int4_path", n=n, packing_s=P4.packing_s,
-        launches_single=launched, launches_serving=launched_b,
-        launches_lsqr=launched_l, launches_lsqr_batched=launched_lb,
-        solve_ms_median=med, iters_per_s=MAXIT / (med / 1e3),
-        int8_iters_per_s=int8_its,
-        min_err=min_err, min_err_k=int(err.argmin()) + 1,
-        gate=INT4_GATES[n], int8_min_err=int8_min,
-        jax_docstring_claim_min_err=0.4333,
-        f64_ref_min_err=float(err_ref.min()), f64_ref_hist_rel_diff=hist,
-        f64_ref_min_rel_diff=at_min, f64_ref_s=ref_s,
-        serving_column0_vs_single=col0,
-        lsqr_min_err=float(rl.err_hist.min()),
-        lsqr_batched_column0_vs_single=lsqr_col0)
-    return launched[4], launched_l[5], launched_b[6], launched_lb[7]
+    want = (0, 0, 0, 0, 2 * STEPS + 1, 0, 0, 0)
+    check(launched == want, f"entry: {LAUNCHES} launches {launched}, "
+          f"expected {want}")
+    res = res.cpu().numpy()
+    check(int(niters) == STEPS and tuple(x.shape) == (N * N,) and
+          bool(torch.isfinite(x).all()) and bool(np.isfinite(res).all()),
+          "entry: non-finite or misshaped result")
+    prob = ct_mismatched(n=N, n_angles=N_ANGLES, n_det=N_DET)
+    ref = host_reference(prob, morton_perm(N_ANGLES, N_DET), morton_perm(N, N),
+                         args[2].cpu().numpy(), maxit=STEPS, hist="res_hist")
+    gap_ref = float(np.max(np.abs(res[:REF_K] - ref[:REF_K]) / ref[:REF_K]))
+    check(gap_ref <= REF_RTOL, f"entry: res_hist vs the float64 host solve "
+          f"{gap_ref:.2e} > {REF_RTOL:.0e}")
+    fn_c, args_c = entry(device="cpu")
+    res_c = fn_c(*args_c)[1].numpy()
+    gap_cpu = float(np.max(np.abs(res - res_c) / res_c))
+    check(gap_cpu <= ENTRY_CPU_RTOL, f"entry: res_hist vs the CPU branch "
+          f"{gap_cpu:.2e} > {ENTRY_CPU_RTOL:.0e}")
+    ms = per_call_ms(lambda: fn(*args), reps=5)
+    say("entry", launches=launched, build_s=build_s, niters=int(niters),
+        min_res=float(res.min()), f64_ref_res_rel_diff=gap_ref,
+        cpu_branch_res_rel_diff=gap_cpu, cpu_branch_min_res=float(
+            res_c.min()), fn_ms_median=float(np.median(ms)),
+        fn_ms_min=min(ms), dispatch_floor_ms=dispatch_floor_seconds() * 1e3)
+    return launched
 
 
 def sharded_launches(kind, forward, maxit=MAXIT):
@@ -3573,10 +4017,8 @@ def same_forms(view, op, label):
 
     sh = view.shards[0] if hasattr(view, "shards") else view.tiles[0]
     for fa, fb in ((sh.fwd_rows, op.fwd_rows), (sh.adj_rows, op.adj_rows)):
-        check((fa.shape, fa.lanes, fa.live) == (fb.shape, fb.lanes, fb.live)
-              and all(torch.equal(getattr(fa, f), getattr(fb, f))
-                      for f in ("vals", "cols", "vec_off", "row_map")),
-              f"{label}: the forms differ from the operator's")
+        check(same_form(fa, fb), f"{label}: the forms differ from the "
+              "operator's")
     check(torch.equal(sh.row_scale, op.fwd_scale), f"{label}: row scales")
 
 
@@ -4071,7 +4513,23 @@ def main():
             torch.cuda.empty_cache()
         say("stopped", after="sharded")
         return
+    if "--float" in sys.argv[1:]:        # a short call: float_forms, entry
+        for n in (64, 128):
+            builds = start_float_builds(n)
+            P = make_problem(n)
+            fjobs = float_results(builds)
+            phase_float_forms(P, fjobs)
+            if n == 64:
+                phase_entry()
+            del P
+            torch.cuda.empty_cache()
+        say("stopped", after="float")
+        return
+    # phase float_forms' operators and float64 host solves are made by
+    # worker processes beside each size's own packing
+    builds = start_float_builds(64)
     P = make_problem(64, adjoint=True)
+    fjobs_64 = float_results(builds)
     k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
         phase_ct_kernels(P)
     lmm_64 = lambda_mm_kernels(P)
@@ -4102,12 +4560,13 @@ def main():
     with PeakMemory("n=64 lambda path"):
         phase_lambda_path(P, full=True)
     t0 = time.perf_counter()
-    P4 = int4_operators(P)
+    P4 = int4_operators(P, refs=True)
     k1i4_64, k3i4_64, k2i4_64, k4i4_64 = int4_kernels(P, P4)
-    with PeakMemory("n=64 int4 path"):
-        int4_launches = phase_int4_path(P4, its, P.ptr_min)
+    int4_launches = phase_variant_path(P, P4, full=True)
     del P4
     say("int4_done", n=64, seconds=time.perf_counter() - t0)
+    float_64 = phase_float_forms(P, fjobs_64)
+    entry_launches = phase_entry()
     with PeakMemory("n=64 sharded"):
         sharded_launches_64, sharded_64, _, solvers_64, _, two_d_64 = \
             phase_sharded(P, ref0, {k: v[2] for k, v in gkb.items()})
@@ -4115,7 +4574,9 @@ def main():
     del P
     torch.cuda.empty_cache()
     phantom_launches = phase_drivers_rest(*host)
+    builds = start_float_builds(128)
     P = make_problem(128, adjoint=True)
+    fjobs_128 = float_results(builds)
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
     lmm_128 = lambda_mm_kernels(P)
@@ -4135,6 +4596,7 @@ def main():
     P4 = int4_operators(P)
     k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
     say("int4_done", n=128, seconds=time.perf_counter() - t0)
+    float_128 = phase_float_forms(P, fjobs_128)
     # phase sharded_2d's tiles, packed by worker processes from here on
     pool, tiles = start_tile_builds(P)
     with PeakMemory("n=128 sharded"):
@@ -4158,9 +4620,26 @@ def main():
     # the block-ELL K1-K4 are on no path any more (0 launches in the solves
     # above, checked); they stay as the Pallas kernels' direct counterparts
     # on the same panel, checked and timed in phase 3
+    # the bfloat16 and float32 variants, each with the launches of its n=64
+    # path as the int4 ones: the single solve (K1), lsqr (K3), the serving
+    # batch (K2), lsqr_batched (K4)
+    floats = []
+    for dt in FLOAT_DTYPES:
+        (k1, k3, k2, k4), (l1, l3, l2, l4) = float_64[dt]
+        (m1, m3, m2, m4), _ = float_128[dt]
+        floats += [
+            kernel_record(f"row_matvec {dt}", csrc + "row_spmv.cu",
+                          pallas + ":46", l1, k1, m1),
+            kernel_record(f"row_rmatvec {dt}", csrc + "row_spmv.cu",
+                          pallas + ":101", l3, k3[:1], k3[1:] + m3),
+            kernel_record(f"row_matmat {dt}", csrc + "row_spmv.cu",
+                          pallas + ":220", l2, k2, m2),
+            kernel_record(f"row_rmatmat {dt}", csrc + "row_spmv.cu",
+                          pallas + ":279", l4, k4[:1], k4[1:] + m4)]
     print(json.dumps({"kernels": [
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
                       main_launches[4], k1r_64, k1r_128,
+                      entry_launches=entry_launches[4],
                       sharded_launches=sharded_launches_64[4],
                       sharded_2d_launches=ba_2d[4],
                       sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
@@ -4201,6 +4680,7 @@ def main():
         kernel_record("row_rmatmat int4", csrc + "row_spmv.cu",
                       pallas + ":279", int4_launches[3], k4i4_64[:1],
                       k4i4_64[1:] + k4i4_128),
+        *floats,
         kernel_record("bucket_matvec", csrc + "bucket_spmv.cu",
                       pallas + ":46", main_launches[0], k1_64, k1_128,
                       superseded_by="row_matvec"),

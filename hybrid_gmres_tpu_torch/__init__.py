@@ -5,15 +5,16 @@ paths and public names so each counterpart is easy to find.  It imports
 ``torch``, ``numpy`` and ``scipy`` only — never ``jax``.
 
 On the CUDA path every sparse product runs as a hand-written Hopper kernel
-on the operator's row-packed forms (int8, or int4 nibble pairs):
+on the operator's row-packed forms (bfloat16, the default of
+``ct_gpu_operators``; float32; int8; or int4 nibble pairs):
 ``csrc/row_spmv.cu`` (SpMV, SpMM and their transposed twins, built with
 ``nvcc`` at first use).  ``hybrid_gmres_tpu_torch.parallel`` runs the 1-D
-sharded GMRES solvers on ``torch.distributed`` (NCCL, or gloo on the
-CPU).  The block-ELL
-kernels of the earlier ports (``csrc/bucket_*.cu``) stay as checked
-counterparts of the Pallas kernels on no solver's path.  On CPU tensors
-every operator uses its plain PyTorch version.  Constructors build on the
-card unless given ``device="cpu"``.
+and 2-D sharded solvers on ``torch.distributed`` (NCCL, or gloo on the
+CPU); ``hybrid_gmres_tpu_torch.entry`` holds the entry point of the solve
+step.  The block-ELL kernels of the earlier ports (``csrc/bucket_*.cu``)
+stay as checked counterparts of the Pallas kernels on no solver's path.
+On CPU tensors every operator uses its plain PyTorch version.
+Constructors build on the card unless given ``device="cpu"``.
 
 Imports are lazy: ``import hybrid_gmres_tpu_torch`` loads no solver until a
 name below is first used.

@@ -41,6 +41,11 @@ single-RHS products (``csrc/row_spmv.cu``), built by
 the same stored values: the nonzero entries only, in the panel's storage
 type, with 16-bit column indices where the columns allow.
 
+The JAX package's two portable reference formats have their twins here
+too, on no kernel's path: :class:`ELLMatrix` (padded row-major ELL,
+:func:`ell_from_csr`) and :class:`BlockELLMatrix` (padded BSR,
+:func:`block_ell_from_csr`), each with a plain ``matvec``.
+
 int4 panels (``packed4``): the JAX package stores two logical int4 blocks
 in the nibbles of each int8 byte along the block axis.  The container
 unpacks them on the host into logical int8 blocks in [-7, 7] and records
@@ -199,6 +204,13 @@ class BucketedBlockELL:
     @property
     def nbytes(self):
         return self.blocks_flat.numel() * self.blocks_flat.element_size()
+
+    def matvec(self, x):
+        """Plain PyTorch ``y = A x`` (the JAX reference ``matvec``): see
+        ``ops.spmv_cuda.bucket_matvec_plain``."""
+        from hybrid_gmres_tpu_torch.ops.spmv_cuda import bucket_matvec_plain
+
+        return bucket_matvec_plain(self, x)
 
     def to(self, device) -> "BucketedBlockELL":
         """The same panel on ``device`` (itself if it is there already):
@@ -623,3 +635,112 @@ def bucketed_block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
     return BucketedBlockELL._from_logical(
         buckets, inv_perm, (m, n), n_pad // bc, pack_int4, device,
         torch_dtype)
+
+
+@dataclass
+class ELLMatrix:
+    """Padded row-major ELL: ``A[i, idx[i, j]] = vals[i, j]``; padded
+    entries point at column 0 and hold 0.  Build with
+    :func:`ell_from_csr`."""
+
+    idx: torch.Tensor     # (rows, width) int32
+    vals: torch.Tensor    # (rows, width)
+    shape: tuple
+
+    def matvec(self, x):
+        """``y = A x``: a gather of ``x`` and a sum along each row, in the
+        promoted type of the values and ``x``."""
+        return torch.sum(self.vals * x[self.idx.long()], dim=1)
+
+
+def ell_from_csr(csr, dtype=np.float32, device="cuda") -> ELLMatrix:
+    """Host conversion CSR -> :class:`ELLMatrix`, each row padded to the
+    longest.  ``device``: where it lives; the default is the card, and it
+    raises without one."""
+    device = require_device(device)
+    rows = csr.shape[0]
+    width = int(np.diff(csr.indptr).max()) if rows else 0
+    idx = np.zeros((rows, width), np.int32)
+    vals = np.zeros((rows, width), dtype)
+    counts = np.diff(csr.indptr)
+    r = np.repeat(np.arange(rows), counts)
+    within = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], counts)
+    idx[r, within] = csr.indices
+    vals[r, within] = csr.data.astype(dtype)
+    return ELLMatrix(torch.as_tensor(idx, device=device),
+                     torch.as_tensor(vals, device=device), tuple(csr.shape))
+
+
+@dataclass
+class BlockELLMatrix:
+    """Block-ELL (padded BSR): dense (BR x BC) blocks and, per block-row, a
+    padded list of block-column indices.  Padded slots have block column 0
+    and zero blocks, so an unconditional sum is exact.  Build with
+    :func:`block_ell_from_csr`."""
+
+    blocks: torch.Tensor   # (nbr, maxb, BR, BC)
+    bcols: torch.Tensor    # (nbr, maxb) int32, padded: 0
+    nblocks: torch.Tensor  # (nbr,) int32: valid blocks per block-row
+    shape: tuple           # logical (m, n) before padding
+
+    @property
+    def block_shape(self):
+        return tuple(self.blocks.shape[2:])
+
+    @property
+    def padded_shape(self):
+        nbr, _, br, bc = self.blocks.shape
+        return (nbr * br, self.bcols_cols * bc)
+
+    @property
+    def bcols_cols(self):
+        """Block columns of the padded matrix."""
+        return -(-self.shape[1] // self.blocks.shape[3])
+
+    def matvec(self, x):
+        """Plain PyTorch ``y = A x``: ``x`` padded and gathered by block
+        column, one einsum over the blocks, summed in float32 or the
+        blocks' type if wider; returns ``x.dtype``."""
+        nbr, _, br, bc = self.blocks.shape
+        acc = torch.promote_types(torch.float32, self.blocks.dtype)
+        x_pad = torch.zeros(self.bcols_cols * bc, dtype=acc, device=x.device)
+        x_pad[: self.shape[1]] = x.to(acc)
+        xg = x_pad.view(self.bcols_cols, bc)[self.bcols.long()]
+        y = torch.einsum("rbij,rbj->ri", self.blocks.to(acc), xg)
+        return y.reshape(nbr * br)[: self.shape[0]].to(x.dtype)
+
+
+def block_ell_from_csr(csr, block=(8, 128), dtype=np.float32,
+                       row_group: int = 1, device="cuda") -> BlockELLMatrix:
+    """Host conversion CSR -> :class:`BlockELLMatrix`, the JAX packer's.
+
+    ``row_group``: the block-rows are padded to a multiple of it.
+    ``dtype``: numpy storage dtype, or ``torch.bfloat16`` (packed in float32
+    on the host, rounded by torch).  ``device``: where it lives; the
+    default is the card, and it raises without one."""
+    import scipy.sparse as sp
+
+    device = require_device(device)
+    torch_dtype = dtype if isinstance(dtype, torch.dtype) else None
+    np_dtype = np.float32 if torch_dtype is not None else np.dtype(dtype)
+    br, bc = block
+    m, n = csr.shape
+    m_pad = -(-m // (br * row_group)) * (br * row_group)
+    n_pad = -(-n // bc) * bc
+    csr_pad = sp.csr_matrix((csr.data, csr.indices, csr.indptr), shape=(m, n))
+    csr_pad.resize((m_pad, n_pad))
+    bsr = csr_pad.tobsr(blocksize=block)
+    bsr.sort_indices()
+    nbr = m_pad // br
+    counts = np.diff(bsr.indptr)
+    maxb = int(counts.max()) if nbr else 0
+    blocks = np.zeros((nbr, maxb, br, bc), np_dtype)
+    bcols = np.zeros((nbr, maxb), np.int32)
+    r = np.repeat(np.arange(nbr), counts)
+    within = np.arange(bsr.indptr[-1]) - np.repeat(bsr.indptr[:-1], counts)
+    blocks[r, within] = bsr.data.astype(np_dtype)
+    bcols[r, within] = bsr.indices
+    return BlockELLMatrix(
+        _to_torch(blocks, device, torch_dtype),
+        torch.as_tensor(bcols, device=device),
+        torch.as_tensor(counts.astype(np.int32), device=device), (m, n))

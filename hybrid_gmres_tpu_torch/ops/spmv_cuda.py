@@ -47,6 +47,7 @@ to the plain version.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 
 import numpy as np
@@ -77,18 +78,20 @@ _MAX_BC = {"bucket_matvec": 1024, "bucket_matmat": 512,
 def bucket_matvec_plain(bell: BucketedBlockELL, x, scale=None):
     """Plain PyTorch ``y = diag(scale) A x``: gather + einsum per bucket,
     concatenate, un-sort through ``inv_perm`` (the twin of the JAX reference
-    ``BucketedBlockELL.matvec``).  Accumulates in float32; returns
-    ``x.dtype``.  The row scale is applied in float32 before that cast, as
+    ``BucketedBlockELL.matvec``).  Accumulates in float32 (in float64 for
+    a float64 panel, which no kernel takes, as the JAX reference does);
+    returns ``x.dtype``.  The row scale is applied before that cast, as
     the kernel's epilogue does."""
     br, bc = bell.block_shape
     m, n = bell.shape
-    x_pad = torch.zeros(bell.ncb * bc, dtype=torch.float32, device=x.device)
-    x_pad[:n] = x.to(torch.float32)
+    acc = torch.promote_types(torch.float32, bell.dtype)
+    x_pad = torch.zeros(bell.ncb * bc, dtype=acc, device=x.device)
+    x_pad[:n] = x.to(acc)
     xg2 = x_pad.view(bell.ncb, bc)
     ys = []
     for blocks, bcols in bell.buckets:
         xg = xg2[bcols.long()]                      # (nbr_b, maxb_b, bc)
-        ys.append(torch.einsum("rbij,rbj->ri", blocks.to(torch.float32), xg))
+        ys.append(torch.einsum("rbij,rbj->ri", blocks.to(acc), xg))
     y_sorted = torch.cat(ys, dim=0)                  # (positions, br)
     y = y_sorted[bell.inv_perm].reshape(-1)[:m]
     if scale is not None:
@@ -864,6 +867,23 @@ class BlockELLOperator(LinearOperator):
     @property
     def device(self):
         return self.fwd_rows.device
+
+    def to(self, device) -> "BlockELLOperator":
+        """The same operator with its forms, scales and ``fro_sq`` on
+        ``device`` (itself if they are there already; the card raises
+        without one): an operator packed on the host, moved to the card.
+        The block-ELL panels stay where they are (see
+        :meth:`panels_on_device`)."""
+        device = require_device(device)
+        if device == self.device:
+            return self
+        op = copy.copy(self)
+        op.fwd_rows = self.fwd_rows.to(device)
+        op.adj_rows = self.adj_rows.to(device)
+        for name in ("fwd_scale", "adj_scale", "fro_sq"):
+            t = getattr(self, name)
+            setattr(op, name, None if t is None else t.to(device))
+        return op
 
     @contextlib.contextmanager
     def panels_on_device(self):

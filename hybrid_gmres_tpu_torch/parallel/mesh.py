@@ -98,9 +98,18 @@ class Mesh:
                                f"the mesh over ranks {list(self.ranks)}")
 
     def all_reduce(self, t):
-        """Sum of ``t`` over the mesh, on every member (``psum``)."""
+        """Sum of ``t`` over the mesh, on every member (``psum``).
+
+        The sum runs in place on a tensor that owns its memory: a fresh
+        ``t`` (what a product or a reduction returns) comes back summed,
+        with no copy.  A view (``t._base`` set: a slice, a row, an entry
+        of stored state) is copied first, so the tensor it views is never
+        overwritten."""
         self._member("all_reduce")
-        t = t.contiguous()
+        if t._base is not None:
+            t = t.clone(memory_format=torch.contiguous_format)
+        else:
+            t = t.contiguous()
         dist.all_reduce(t, group=self.group)
         return t
 

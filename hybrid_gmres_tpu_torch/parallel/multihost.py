@@ -59,3 +59,25 @@ def initialize_multihost(
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group(backend, **kwargs)
     return True
+
+
+def local_shard_info(mesh, axis: str = "rows") -> dict:
+    """Where this process stands in ``mesh`` (a :class:`~.mesh.Mesh`), for
+    loading its operator shard locally instead of broadcasting the whole
+    matrix: ``mesh_size`` (its ranks), ``local_device_ids`` (the index of
+    the card this rank drives, 0 for the CPU, when it is a member of the
+    mesh; else empty), ``process_index`` and ``process_count`` (this
+    rank and the world size of ``torch.distributed``).
+
+    JAX runs one process per host over many devices, so its
+    ``local_device_ids`` lists every device of the host in the mesh; the
+    port runs one process per card, so the list holds at most one entry,
+    and the process index is the rank.  ``axis`` is accepted for the JAX
+    signature and, as there, reads nothing."""
+    member = mesh.index is not None
+    return {
+        "mesh_size": mesh.size,
+        "local_device_ids": ([mesh.device.index or 0] if member else []),
+        "process_index": dist.get_rank(),
+        "process_count": dist.get_world_size(),
+    }

@@ -257,9 +257,7 @@ def tiled_local_ops(tp: TiledPanels, mesh: Mesh, dtype, axes=("rows",
     def rmatvec(u_loc):
         return rows.all_reduce(tile_rmatvec(tp, u_loc, scale)).to(dtype)
 
-    # a copy: the caller's sums run in place
-    fro_sq = tp.fro_sq[tp.first].to(dtype=dtype, device=mesh.device,
-                                    copy=True)
+    fro_sq = tp.fro_sq[tp.first].to(dtype=dtype, device=mesh.device)
     return matvec, rmatvec, fro_sq
 
 

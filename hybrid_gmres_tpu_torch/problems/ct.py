@@ -221,10 +221,14 @@ BLOCK_B = (8, 128)
 N_BUCKETS = 8
 
 
-def ct_gpu_operators(prob: CTProblem, dtype="int8", device="cuda",
+def ct_gpu_operators(prob: CTProblem, dtype="bfloat16", device="cuda",
                      with_adjoint: bool = False):
     """The production path for a CT problem: Morton-ordered block-ELL
-    operators (twin of ``ct_tpu_operators``).
+    operators (twin of ``ct_tpu_operators``, with its default storage
+    type, bfloat16).
+
+    ``dtype``: "bfloat16" (the default), "float32", "int8" (per-row
+    quantized, ``bench.py``'s operators) or "int4", or the torch dtype.
 
     ``with_adjoint=False`` (the default) builds forward panels only: the
     GMRES solvers need nothing else (``B`` is its own operator), and the GKB

@@ -2,8 +2,8 @@
 ``hybrid_gmres_tpu/utils/profiling.py``).
 
 A ``torch.profiler`` trace context for the device timeline, a wall-clock
-benchmark helper that waits for the card, a device timer on CUDA events, and
-the nnz/s throughput calculator.
+benchmark helper that waits for the card, a device timer on CUDA events, the
+nnz/s throughput calculator, and the dispatch floor of one call.
 
 Each timer times the device of the tensors the callable returns: CUDA events
 and ``torch.cuda.synchronize`` for CUDA tensors, ``time.perf_counter`` for
@@ -152,3 +152,20 @@ def device_seconds(fn: Callable, *args, repeats: int = 10,
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / 1e3 / repeats
+
+
+def dispatch_floor_seconds(repeats: int = 5, device="cuda") -> float:
+    """The fixed cost of one call and its read-back: the least wall time,
+    over ``repeats`` calls, of a bare ``x + 1`` on ``device`` with the
+    result read back on the host (``.item()``).  Printed beside a wall
+    time, it splits the wall into dispatch and device work.  ``device``:
+    the card by default (raises without one), or ``"cpu"``."""
+    dev = require_device(device)
+    x = torch.zeros((), dtype=torch.float32, device=dev)
+    (x + 1).item()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        (x + 1).item()
+        times.append(time.perf_counter() - t0)
+    return min(times)

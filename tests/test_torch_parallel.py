@@ -481,6 +481,25 @@ def test_comm_dtype_bf16_band(ranks, layout):
     assert 0 < band < 3e-2, band
 
 
+def test_all_reduce_keeps_a_views_owner(ranks):
+    """``Mesh.all_reduce`` sums a fresh tensor in place (no copy) and a
+    view of stored state on a copy: the tensor the view reads survives the
+    sum.  ``local_shard_info`` gives each rank its place in the mesh."""
+    weights = sum(r + 1 for r in range(P))
+    base = np.arange(6, dtype=np.float64).reshape(2, 3)
+    for rank, res in enumerate(ranks):
+        out = res["all_reduce_view"]
+        if isinstance(out, dict) and "traceback" in out:
+            pytest.fail(out["traceback"])
+        np.testing.assert_array_equal(out["owner"], out["kept"])
+        np.testing.assert_array_equal(out["owner"], base * (rank + 1))
+        np.testing.assert_array_equal(out["row"], base[1] * weights)
+        assert out["fresh_in_place"]
+        np.testing.assert_array_equal(out["fresh"], base.sum(0) * weights)
+        assert out["info"] == {"mesh_size": P, "local_device_ids": [0],
+                               "process_index": rank, "process_count": P}
+
+
 def test_results_replicated_on_every_rank(ranks):
     """Every rank returns the same replicated x and histories (the
     collectives give every rank the same bits), and its own basis slab."""

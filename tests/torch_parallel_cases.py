@@ -414,6 +414,26 @@ def case_comm_dtype(mesh, inp):
     return out
 
 
+def case_all_reduce_view(mesh, inp):
+    """``Mesh.all_reduce`` on a view of stored state (a row of this rank's
+    (2, 3) block) and on a fresh tensor; ``local_shard_info`` of the
+    mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from hybrid_gmres_tpu_torch.parallel.multihost import local_shard_info
+
+    rank = dist.get_rank()
+    owner = torch.arange(6, dtype=torch.float64).reshape(2, 3) * (rank + 1)
+    kept = owner.clone()
+    row = mesh.all_reduce(owner[1])
+    fresh = owner.sum(dim=0)
+    summed = mesh.all_reduce(fresh)
+    return {"owner": owner, "kept": kept, "row": row,
+            "fresh_in_place": summed is fresh, "fresh": summed,
+            "info": local_shard_info(mesh)}
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
