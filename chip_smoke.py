@@ -6,9 +6,11 @@
     python3 chip_smoke.py --sharded   # build and the three sharded phases
     python3 chip_smoke.py --float     # build, float_forms and entry
 
-Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (four
-libraries, eight kernels: the block-ELL K1-K4 and the redesigned K1-K4 on
-the row-packed forms, these also on int4 nibble-packed forms) and drives
+Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (five
+libraries, nine kernels: the block-ELL K1-K4, the redesigned K1-K4 on the
+row-packed forms, these also on int4 nibble-packed forms, and K2w, K2 for
+wide right-hand-side blocks on the tensor cores, on the tile forms) and
+drives
 its path families on the Morton-ordered int8 fan-beam CT operators at n=64
 (180x180 rays) and n=128 (360x360 rays), on their int4 twins and on their
 bfloat16 and float32 twins (the JAX package's default storage type):
@@ -28,11 +30,11 @@ bfloat16 and float32 twins (the JAX package's default storage type):
     and K4; ``lsqr`` also with ``with_adjoint=True`` (K3 on the form of the
     adjoint panel);
   * the lambda-choice path — the regularize-then-project solvers
-    ``ba_gmres_rtp`` and ``ab_gmres_rtp`` (the redesigned K1, and K2 at
+    ``ba_gmres_rtp`` and ``ab_gmres_rtp`` (the redesigned K1, and K2w at
     R = maxit for AB-RTP's A Q every step), the restarted wrappers, the
     resumed, bf16-basis and ``history=False`` single solves, the GCV /
-    discrepancy / L-curve selectors (K2 at R = k_gcv and at R = the grid
-    size) and the experiment drivers ``ptr_rtp``, ``regularization`` and
+    discrepancy / L-curve selectors (K2r or K2w at R = k_gcv and at R = the
+    grid size, as the routing rule names them) and the experiment drivers ``ptr_rtp``, ``regularization`` and
     ``gcv_surface_exp``;
   * the rest of the drivers — ``phantom2d_gpu`` (the JAX package's
     ``phantom2d_tpu`` on the card: the single solve through the redesigned
@@ -91,7 +93,7 @@ Phases:
      and with ``reorth=True``);
   5. single solve at n=64: the launch counts reset before and read after
      (the redesigned K1 must give 201: r0 = B b, then A and B per
-     iteration; every other kernel 0; counts are 8-tuples, ``LAUNCHES``),
+     iteration; every other kernel 0; counts are 9-tuples, ``LAUNCHES``),
      the quality gate on the min-over-k error, the error history against a
      float64 host reference, it/s from the median of 5 solves;
   6. serving batch at n=64: launch counts (201 redesigned K2 launches per
@@ -109,7 +111,7 @@ Phases:
      an (R,) lambda against the scalar, and a resume 40 -> 100 against the
      uninterrupted run, bit for bit;
   8. the lambda-choice path at n=64: BA- and AB-RTP (launches from the
-     code: 301 K1r, and 100 K2r for AB-RTP; the min-over-k error against
+     code: 301 K1r, and 100 K2w for AB-RTP; the min-over-k error against
      the same solver in float64 on the host, AB-RTP's reference making one
      product of A a step; it/s), AB-RTP again with the caller's TF32 on
      (the flag restored, the history in band, the Gram with and without
@@ -219,10 +221,21 @@ before the path) is printed after it (``memory``) and all together
 (``memory_peaks``), once the kernel phases' plain-version caches are
 dropped.
 
-Phase 3 also holds the redesigned K2 at the lambda path's R and layouts
-(R = 100 and 20 on the transposed view of a column-major basis, R = 80 on a
-row-major block) against its plain version (in column chunks), column j
-bit-equal to the redesigned K1, timed beside the library call and the bound.
+Phase 3 also holds K2w (``wide_matmat`` on the tile form, which the
+operators' ``matmat`` takes where ``takes_tiles`` says so: int8 and int4
+forms, R >= R_WIDE, stored entries times R >= WIDE_WORK) at the lambda
+path's R and layouts (R = 100 and 20 on the transposed view of a
+column-major basis, R = 80 on a row-major block): one launch through
+``op.matmat`` on the kernel the rule names, K2w against its plain version
+(in column chunks), the library call and the float64 product on the form's
+values (its error at most twice K2r's against the same product), timed in
+turns beside K2r and the library call against the float32 and the
+tensor-core bounds, faster than both where routed, and held row by row to
+its bound on an X spread over 2^30 (``lambda_mm_kernels``); and sweeps R =
+8..128 on A and B with K2w, K2r and the library call side by side, every
+routed shape faster on K2w than on K2r (``k2w_sweep``: where the rule comes
+from).  The int4 phase does the same on the int4 forms and runs AB-RTP on
+them against the same solve on K2r (``int4_wide_path``).
 
 Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}`` (the int4, bfloat16 and float32 variants as
@@ -285,6 +298,11 @@ KERNEL_RTOL = 1e-5
 # The library call multiplies by float32(s * q), the kernel by s * (sum q x):
 # one more rounding per entry.
 LIBRARY_RTOL = 1e-4
+# K2w against the float64 product on the values the form holds, relative
+# to the largest entry: at most this multiple of K2r's error on the same
+# input (K2r accumulates in float32; K2w rounds X to 2^-31 of its column's
+# largest entry and sums exactly, then rounds once, or once a segment).
+K2W_ERR_RATIO = 2.0
 # K3 against K1 on an adjoint panel of the same Q, and <A x, u> against
 # <x, A^T u>: the same products summed in another order, float32.
 ADJOINT_RTOL = 1e-5
@@ -312,6 +330,9 @@ OTHER_VARIANT_MAX_COLS = 51200
 # cores (the kernels multiply float32 x by converted panel values).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the bf16 rate of the tensor cores (dense), for K2w's three products of a
+# stored value, one per plane of X
+PEAK_BF16_FLOPS = 989e12
 
 
 def fail(msg):
@@ -536,6 +557,18 @@ def bound(work):
     float32 rate."""
     t_bytes = sum(w[0] for w in work) / PEAK_BYTES_PER_S * 1e3
     t_flops = sum(w[1] for w in work) / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations")
+
+
+def tc_bound(work):
+    """(bound_ms, bound_by) of ``[(bytes, flops), ...]`` on the tensor
+    cores: the larger of bytes over the memory rate and three times the
+    flops (three bf16 products of a stored value, a float32 X split in
+    three) over the bf16 rate.  K2w's four byte products on the int8 tensor
+    cores, at twice that rate, take two thirds of that operation term."""
+    t_bytes = sum(w[0] for w in work) / PEAK_BYTES_PER_S * 1e3
+    t_flops = sum(3 * w[1] for w in work) / PEAK_BF16_FLOPS * 1e3
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                    else "operations")
 
@@ -1415,15 +1448,15 @@ def host_reference_gkb(P, name, b, maxit=MAXIT):
 def kernel_wrappers():
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
         bucket_matmat, bucket_matvec, bucket_rmatmat, bucket_rmatvec,
-        row_matmat, row_matvec, row_rmatmat, row_rmatvec)
+        row_matmat, row_matvec, row_rmatmat, row_rmatvec, wide_matmat)
 
     return (bucket_matvec, bucket_matmat, bucket_rmatvec, bucket_rmatmat,
-            row_matvec, row_rmatvec, row_matmat, row_rmatmat)
+            row_matvec, row_rmatvec, row_matmat, row_rmatmat, wide_matmat)
 
 
 # the order of counts(): the block-ELL K1-K4, then the redesigned K1, K3,
-# K2 and K4
-LAUNCHES = "(K1, K2, K3, K4, K1r, K3r, K2r, K4r)"
+# K2 and K4, then K2 for wide right-hand-side blocks (K2w)
+LAUNCHES = "(K1, K2, K3, K4, K1r, K3r, K2r, K4r, K2w)"
 
 
 def reset_counts():
@@ -1432,9 +1465,10 @@ def reset_counts():
 
 
 def counts():
-    """Launches of (K1, K2, K3, K4, K1r, K3r, K2r, K4r) since the last
+    """Launches of (K1, K2, K3, K4, K1r, K3r, K2r, K4r, K2w) since the last
     reset: the block-ELL kernels, then the redesigned K1, K3, K2 and K4
-    (``row_matvec``, ``row_rmatvec``, ``row_matmat``, ``row_rmatmat``)."""
+    (``row_matvec``, ``row_rmatvec``, ``row_matmat``, ``row_rmatmat``), then
+    K2w (``wide_matmat``)."""
     return tuple(wrapper.launches for wrapper in kernel_wrappers())
 
 
@@ -1457,14 +1491,17 @@ def held_to(err, err_ref, label, what, bands=None):
 def release_plain_caches(P):
     """Drop the sum orders that the kernel phases made the plain versions
     cache on the card (``RowPacked.sum_order``: int64 indices of every
-    stored entry, gigabytes at n=128).  No solve reads them, so the memory
-    peaks of the paths then count what the paths need."""
+    stored entry, gigabytes at n=128), and the tile forms K2w's phase built
+    (the lambda path builds them again at its first wide product).  No
+    solve reads them, so the memory peaks of the paths then count what the
+    paths need."""
     import torch
 
     for op in (P.A_op, P.B_op, P.A_adj, P.B_adj):
         if op is not None:
             for rp in (op.fwd_rows, op.adj_rows):
                 rp.__dict__.pop("sum_order", None)
+            op._tiles = None      # rebuilt at the next wide product
     torch.cuda.empty_cache()
 
 
@@ -1488,7 +1525,7 @@ def phase_main_path(P):
     res = r.res_hist.cpu().numpy()
     ms = per_call_ms(lambda: solve(P), reps=5)
     q1, med, q3 = (float(v) for v in np.percentile(ms, [25, 50, 75]))
-    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
+    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0, 0)
     check(launched == want, f"n={n}: {LAUNCHES} launches {launched} in the "
           f"single solve, expected {want}")
     check(niters == MAXIT, f"n={n}: niters {niters} != {MAXIT}")
@@ -1506,7 +1543,7 @@ def phase_main_path(P):
     ref_diff, min_diff = held_to(err, err_ref, f"n={n}",
                                  "float64 host reference")
     say("main_path", **P.info, maxit=MAXIT, lam=LAM,
-        launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched, host_syncs=syncs.count,
+        launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=launched, host_syncs=syncs.count,
         first_solve_s=first_s,
         timed_solves=len(ms),
         solve_ms_median=med, solve_ms_q1=q1, solve_ms_q3=q3,
@@ -1533,7 +1570,7 @@ def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     r = solve_batched(P, b, defer, x0=x0, **kw)
     torch.cuda.synchronize()
     launched = counts()
-    want = (0, 0, 0, 0, 0, 0, expect_k2, 0)
+    want = (0, 0, 0, 0, 0, 0, expect_k2, 0, 0)
     check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
           f"expected {want}")
     check(r.niters.tolist() == [MAXIT] * R, f"{label}: niters "
@@ -1723,7 +1760,8 @@ def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
         extra["resume_from"].res_hist.shape[0]
     if k0 == 0 and "x0" not in extra:
         fwd, tr = gkb_launches(name, maxit)
-        want = (0, 0, 0, 0) + ((0, 0, fwd, tr) if tail else (fwd, tr, 0, 0))
+        want = (0, 0, 0, 0) + ((0, 0, fwd, tr, 0) if tail
+                                else (fwd, tr, 0, 0, 0))
         check(launched == want, f"{label}: {LAUNCHES} launches "
               f"{launched}, expected {want}")
     check(bool((r.niters == maxit).all()), f"{label}: niters "
@@ -1779,7 +1817,7 @@ def phase_gkb_path(P, names, gcv=False):
                                GKB_BANDS)
         rec = dict(n=n, solver=name, maxit=MAXIT,
                    lam=LAM if "hybrid" in name else None,
-                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=launched,
                    host_syncs=host_syncs,
                    min_err=float(err.min()),
                    min_err_k=int(err.argmin()) + 1, final_err=float(err[-1]),
@@ -1798,7 +1836,7 @@ def phase_gkb_path(P, names, gcv=False):
             check(gap <= WITH_ADJOINT_RTOL, f"{label}: with_adjoint=True "
                   f"differs from forward panels only by {gap:.2e}")
             rec["with_adjoint"] = dict(
-                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=la, hist_rel_diff=gap,
+                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=la, hist_rel_diff=gap,
                 panel_mb=(P.A_adj.fwd.nbytes + P.A_adj.adj.nbytes) / 1e6,
                 **gkb_timed(name, P.A_adj, P.b, P.x_true, MAXIT))
         if name == "hybrid_lsmr" and gcv:
@@ -1815,7 +1853,7 @@ def phase_gkb_path(P, names, gcv=False):
                   f"fixed-lambda minimum {err.min():.4f}")
             fn, _ = gkb_solver(name)
             rec["lam=gcv"] = dict(
-                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=lg,
+                launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=lg,
                 host_syncs=gkb_counted.host_syncs,
                 min_err=m_g, min_err_k=int(rg.err_hist.argmin()) + 1,
                 solve_ms=per_call_ms(lambda: fn(
@@ -1846,7 +1884,7 @@ def phase_gkb_serving(P, names, ref0, full):
         err = r.err_hist.cpu().numpy()
         rec = dict(n=n, solver=name, R=R, maxit=MAXIT,
                    lam=LAM if "hybrid" in name else None,
-                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=launched,
                    host_syncs=gkb_counted.host_syncs,
                    min_err=err.min(axis=0).tolist(),
                    min_err_k=(err.argmin(axis=0) + 1).tolist())
@@ -1931,13 +1969,13 @@ def phase_small_reference():
             reset_counts()
             runs[name] = (fn(), counts())
         got[dev] = runs
-    expected = {"single": (0, 0, 0, 0, 21, 0, 0, 0),
-                "batched": (0, 0, 0, 0, 0, 0, 21, 0),
-                "deferred": (0, 0, 0, 0, 0, 0, 21, 0)}
+    expected = {"single": (0, 0, 0, 0, 21, 0, 0, 0, 0),
+                "batched": (0, 0, 0, 0, 0, 0, 21, 0, 0),
+                "deferred": (0, 0, 0, 0, 0, 0, 21, 0, 0)}
     for name in GKB_SINGLE + GKB_BATCHED:
         fwd, tr = gkb_launches(name, 6)
         expected[name] = expected[name + REORTH] = (0, 0, 0, 0) + (
-            (0, 0, fwd, tr) if "batched" in name else (fwd, tr, 0, 0))
+            (0, 0, fwd, tr, 0) if "batched" in name else (fwd, tr, 0, 0, 0))
     worst = {}
     for name, want in expected.items():
         (rc, launches_cuda), (rh, launches_cpu) = got["cuda"][name], \
@@ -1990,66 +2028,259 @@ def lambda_mm_inputs(n, R, layout, rng, device):
     return V.T[:, :R] if layout == "basis" else V[:R].T.contiguous()
 
 
-def lambda_mm_kernels(P):
-    """The redesigned K2 at the R and in the layouts of the lambda-choice
-    path (``LAMBDA_MM``) on the form of A, and at the discrepancy's R on
-    the form of B: against its plain version (in column chunks), column j
-    bit-equal to the redesigned K1 on column j, the library call; timed in
-    turns (plain, kernel, kernel, plain) beside the library call, against
-    the bound from the form's live bytes.  Returns the records."""
+def csr64_on_card(q):
+    """A float64 scipy CSR matrix as a float64 ``torch.sparse`` CSR tensor
+    on the card: the product on the values a form holds (:func:`form_csr`),
+    independent of the kernels."""
+    import torch
+
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(q.indptr.astype(np.int64), device="cuda"),
+        torch.as_tensor(q.indices.astype(np.int64), device="cuda"),
+        torch.as_tensor(q.data, device="cuda"), size=q.shape)
+
+
+def tile_forms(op, label):
+    """``op``'s tile form (K2w's), built here at first use: its seconds on
+    the host and the card, and its bytes (also a ``memory`` line)."""
+    import torch
+
+    t0 = time.perf_counter()
+    tp = op.fwd_tiles
+    torch.cuda.synchronize()
+    info = dict(build_s=time.perf_counter() - t0, tile_mb=tp.nbytes / 1e6,
+                rows_mb=op.fwd_rows.nbytes / 1e6, tiles=tp.tiles,
+                entries=int(tp.ent.numel()), panels=tp.panels, fill=tp.fill)
+    MEMORY[f"{label} tile form"] = info
+    say("memory", path=f"{label} tile form", **info)
+    return tp, info
+
+
+# AB-RTP's basis masked past this step (K2w skips a thread block whose
+# columns are all zero; at R=100, 51 leaves the columns of one thread block
+# partly zero, computed, and those of another wholly zero, skipped)
+MASKED_K = 51
+# X for the check of K2w's row bound: each entry of a Gaussian column
+# scaled by 2^-u, u uniform in [0, SPREAD_BITS): most entries far below
+# their column's largest, where K2w keeps fewer bits than float32
+SPREAD_BITS = 30
+SPREAD_R = 20
+
+
+def row_bound_check(tp, rp, q, exact_op, scale, label, rng):
+    """K2w (``wide_matmat``) on an X whose columns span 2^SPREAD_BITS,
+    held row by row to its bound (``csrc/tile_spmm.cu``): the rounding of
+    X to the grid 2^(E-30) of its column, ``|s_i| sum_j |q_ij|
+    2^(E_r-31)``, plus the roundings to float32 of the result (one) and, with
+    segments, of each segment's sum and of their sum, each at most
+    2^-24 ``|s_i| sum_j |q_ij x_jr|``.  K2r (float32 per entry, not held
+    to it) beside it.  Returns the record."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        _gather_for, _threads_for, row_matmat, row_matmat_plain, row_matvec)
+        _wide_grid, row_matmat, wide_matmat)
+
+    n = tp.shape[1]
+    V = rng.standard_normal((SPREAD_R + 1, n)) * np.exp2(
+        -SPREAD_BITS * rng.random((SPREAD_R + 1, n)))
+    X = torch.as_tensor(V, dtype=torch.float32, device="cuda").T[:, :SPREAD_R]
+    got = wide_matmat(tp, X, scale).double()
+    k2r = row_matmat(rp, X, scale).double()
+    X64 = X.double()
+    exact = exact_op @ X64
+    absq = csr64_on_card(abs(q))
+    absdot = absq @ X64.abs()
+    E = torch.floor(torch.log2(X64.abs().amax(0)))
+    nseg = _wide_grid(tp, SPREAD_R)[1]
+    roundings = 1 if nseg == 1 else 2 * nseg
+    bound = (absq @ torch.ones((n, 1), dtype=torch.float64, device="cuda")
+             ) * torch.exp2(E - 31)[None, :] + roundings * 2.0 ** -24 * absdot
+    err = (got - exact).abs()
+    safe = torch.where(bound > 0, bound, 1.0)
+    ratio = float((err / safe).max())
+    check(bool((err <= bound * (1 + 1e-6)).all()), f"{label}: K2w outside "
+          f"its row bound on X spread over 2^{SPREAD_BITS} (worst "
+          f"{ratio:.3f} of it)")
+    return dict(spread_bits=SPREAD_BITS, R=SPREAD_R, segments=nseg,
+                worst_share_of_row_bound=ratio,
+                k2r_worst_share_of_row_bound=float(
+                    ((k2r - exact).abs() / safe).max()),
+                rel_err=rel_err(got, exact), k2r_rel_err=rel_err(k2r, exact))
+
+
+def lambda_mm_kernels(P, variant="int8"):
+    """K2 at the R and in the layouts of the lambda-choice path
+    (``LAMBDA_MM``) on the ``variant`` (int8 or int4) form of A, and at the
+    discrepancy's R on the form of B: one launch through ``op.matmat``,
+    counted, on the kernel the routing rule names (``takes_tiles``: K2w
+    where the work is large, else K2r).  K2w (``wide_matmat`` on the tile
+    form, built here) at every shape against its plain version (in column
+    chunks, KERNEL_RTOL) and the library call (LIBRARY_RTOL), and against
+    the float64 product on the values the row form holds: at most
+    K2W_ERR_RATIO times the error of ``row_matmat`` (K2r) on the same input
+    against the same product: the check that replaces, at the routed
+    shapes, the one of each column against K1r bit for bit (K2w's columns
+    are K1r's within the rounding of X, not bit for bit; K2r's are still
+    checked at R <= 12 in phase 3's ``mm_sweep``).  Timed in turns beside
+    K2r and the library call, against the float32 bound and the
+    tensor-core bound of the same work; where routed, faster than both.
+    On each form also K2w's row bound on a widely spread X
+    (:func:`row_bound_check`) and the sweep (:func:`k2w_sweep`).  Returns
+    the records and the sweep's."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        _wide_grid, row_matmat, takes_tiles, wide_matmat, wide_matmat_plain)
 
     rng = np.random.default_rng(3)
-    recs = []
-    for tag, op, csr, cases in (("A", P.A_op, P.A_csr, LAMBDA_MM),
-                                ("B", P.B_op, P.B_csr, LAMBDA_MM[2:])):
+    recs, sweep = [], []
+    for tag, op, cases in (("A", P.A_op, LAMBDA_MM),
+                           ("B", P.B_op, LAMBDA_MM[2:])):
         m, n = op.shape
         rp, scale = op.fwd_rows, op.fwd_scale
-        lib = library_csr(csr)
+        q = form_csr(rp, scale)
+        lib, exact_op = library_of(q), csr64_on_card(q)
+        tp, forms = tile_forms(op, f"n={P.n} {tag} {variant}")
+        bound_rec = row_bound_check(tp, rp, q, exact_op, scale,
+                                    f"n={P.n} {tag} {variant}", rng)
         for caller, R, layout in cases:
-            label = f"n={P.n} {tag}: K2 redesigned at R={R} ({caller})"
+            label = f"n={P.n} {tag} {variant}: K2 at R={R} ({caller})"
             X = lambda_mm_inputs(n, R, layout, rng, op.device)
             Xc = X.contiguous()
-            want = plain_in_chunks(row_matmat_plain, rp, X, scale)
-            got = row_matmat(rp, X, scale)
+            routed = takes_tiles(rp, R, X.device)
+            reset_counts()
+            got_op = op.matmat(X)
             torch.cuda.synchronize()
+            launched = counts()
+            check(launched == k1r_k2r(0, (1, op, R)), f"{label}: {LAUNCHES} "
+                  f"launches {launched} in one op.matmat")
+            got = wide_matmat(tp, X, scale)
+            want = plain_in_chunks(wide_matmat_plain, tp, X, scale)
+            k2r = row_matmat(rp, X, scale)
+            exact = exact_op @ X.double()
+            torch.cuda.synchronize()
+            check(torch.equal(got_op, got if routed else k2r),
+                  f"{label}: op.matmat is not the routed kernel's product")
             check(got.shape == want.shape == (m, R) and
                   bool(torch.isfinite(got).all()),
                   f"{label}: output not finite or misshaped")
+            check(got.stride() == k2r.stride(), f"{label}: layout "
+                  f"{got.stride()}, K2r's {k2r.stride()}")
             err = rel_err(got, want)
-            check(err <= KERNEL_RTOL, f"{label} vs plain {err:.3e}")
-            col = max(float((got[:, j] - row_matvec(
-                rp, X[:, j].contiguous(), scale)).abs().max())
-                for j in range(R))
-            check(col == 0.0, f"{label}: a column differs from the "
-                  f"redesigned K1 on it by {col:.3e}")
+            check(err <= KERNEL_RTOL, f"{label}: K2w vs plain {err:.3e}")
             lib_diff = rel_err(lib @ Xc, got)
-            check(lib_diff <= LIBRARY_RTOL, f"{label} vs library "
+            check(lib_diff <= LIBRARY_RTOL, f"{label}: K2w vs library "
                   f"{lib_diff:.3e}")
-            run_k = partial(row_matmat, rp, X, scale)
-            run_p = partial(plain_in_chunks, row_matmat_plain, rp, X, scale)
-            # the plain version takes up to a second here: timed once
-            k1, p1, k2 = time_ms(run_k), time_ms(run_p, 1), time_ms(run_k)
+            e_w, e_r = rel_err(got, exact), rel_err(k2r, exact)
+            check(e_w <= K2W_ERR_RATIO * e_r, f"{label}: K2w's error "
+                  f"{e_w:.3e} to the float64 product, K2r's {e_r:.3e}")
+            run_w = partial(wide_matmat, tp, X, scale)
+            run_r = partial(row_matmat, rp, X, scale)
+            run_p = partial(plain_in_chunks, wide_matmat_plain, tp, X, scale)
+
+            def run_l():
+                return lib @ Xc
+
+            # in turns; the plain version takes up to a second: timed once
+            w1, r1, l1 = time_ms(run_w), time_ms(run_r), time_ms(run_l)
+            p1 = time_ms(run_p, 1)
+            l2, r2, w2 = time_ms(run_l), time_ms(run_r), time_ms(run_w)
+            ms, row_ms, lib_ms = (w1 + w2) / 2, (r1 + r2) / 2, (l1 + l2) / 2
+            if routed:
+                check(ms < row_ms and ms < lib_ms, f"{label}: routed to K2w "
+                      f"at {ms * 1e3:.1f} us, K2r {row_ms * 1e3:.1f}, the "
+                      f"library {lib_ms * 1e3:.1f}")
+            masked = None
+            if caller == LAMBDA_MM[0][0]:
+                # AB-RTP's masked basis at step MASKED_K: K2w skips the
+                # blocks of zero columns past it (the same bits)
+                Xm = X * (torch.arange(R, device=X.device)
+                          < MASKED_K).to(X.dtype)[None, :]
+                got_m = wide_matmat(tp, Xm, scale)
+                want_m = plain_in_chunks(wide_matmat_plain, tp, Xm, scale)
+                err_m = rel_err(got_m, want_m)
+                check(err_m <= KERNEL_RTOL and
+                      not bool(got_m[:, MASKED_K:].any()), f"{label}: K2w "
+                      f"on the basis masked at {MASKED_K} vs plain "
+                      f"{err_m:.3e}, or a masked column not zero")
+                masked = dict(k=MASKED_K, max_rel_err=err_m, ms=time_ms(
+                    partial(wide_matmat, tp, Xm, scale)))
             work = row_work(rp, m, R)
             b_ms, b_by = bound([work])
-            gather = _gather_for(rp, X)
-            ms = (k1 + k2) / 2
+            tc_ms, tc_by = tc_bound([work])
             rec = dict(
-                panel=f"n={P.n} {tag} int8 form", caller=caller, R=R,
-                layout=("column-major basis" if layout == "basis"
-                        else "row-major block"), shape=list(op.shape),
-                ms=ms, plain_ms=p1,
-                library_ms=time_ms(lambda: lib @ Xc), bound_ms=b_ms,
-                bound_by=b_by, share_of_bound=b_ms / ms, work=work,
-                gather=gather, threads=_threads_for(rp, gather),
+                panel=f"n={P.n} {tag} {variant} tile form", caller=caller,
+                R=R, layout=("column-major basis" if layout == "basis"
+                             else "row-major block"), shape=list(op.shape),
+                routed_to="K2w" if routed else "K2r", live=rp.live,
+                work_entries_x_columns=rp.live * R, ms=ms, plain_ms=p1,
+                row_matmat_ms=row_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms, tc_bound_ms=tc_ms,
+                tc_bound_by=tc_by, share_of_tc_bound=tc_ms / ms, work=work,
+                faster_than_k2r=ms < row_ms, faster_than_library=ms < lib_ms,
+                grid=list(_wide_grid(tp, R)), launches=launched,
                 max_abs_err=float((got - want).abs().max()),
-                max_rel_err=err, column_vs_k1_max_diff=col,
-                library_max_rel_diff=lib_diff)
-            say("kernel_vs_plain", kernel="K2 redesigned", **rec)
+                max_rel_err=err, f64_rel_err=e_w, row_matmat_f64_rel_err=e_r,
+                f64_err_ratio=e_w / e_r, library_max_rel_diff=lib_diff,
+                row_bound=bound_rec, masked_basis=masked, **forms)
+            say("kernel_vs_plain", kernel=f"K2w {variant}", **rec)
             recs.append(rec)
+        sweep += k2w_sweep(f"n={P.n} {tag} {variant}", op, lib)
+        del lib, exact_op
+        torch.cuda.empty_cache()
+    return recs, sweep
+
+
+# The sweep of K2w beside K2r and the library call: the routing rule
+# (ops/spmv_cuda.py:takes_tiles, R_WIDE and WIDE_WORK) is chosen from it,
+# and its R=8 row is the yardstick of a later redesign of the serving
+# products.
+SWEEP_R = (8, 12, 16, 20, 32, 64, 80, 100, 128)
+
+
+def k2w_sweep(panel, op, lib):
+    """K2w (``wide_matmat``, at every R, whatever the routing) beside K2r
+    (``row_matmat``, its default gather) and the library call ``lib`` on
+    the forward form of ``op`` at SWEEP_R, in the basis' layout (the
+    transposed view of a column-major basis, as AB-RTP and GCV hand it),
+    timed in turns (K2w, K2r, library, library, K2r, K2w), against both
+    bounds.  Every shape the rule routes to K2w is faster there than on K2r
+    (checked).  Returns the records."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        _wide_grid, row_matmat, takes_tiles, wide_matmat)
+
+    rng = np.random.default_rng(4)
+    recs = []
+    m, n = op.shape
+    rp, scale, tp = op.fwd_rows, op.fwd_scale, op.fwd_tiles
+    for R in SWEEP_R:
+        label = f"{panel} R={R}"
+        X = lambda_mm_inputs(n, R, "basis", rng, op.device)
+        Xc = X.contiguous()
+        run_w = partial(wide_matmat, tp, X, scale)
+        run_r = partial(row_matmat, rp, X, scale)
+
+        def run_l():
+            return lib @ Xc
+
+        d = rel_err(run_w(), run_r())
+        check(d <= LIBRARY_RTOL, f"{label}: K2w against K2r {d:.3e}")
+        w1, r1, l1 = (time_ms(f, 10) for f in (run_w, run_r, run_l))
+        l2, r2, w2 = (time_ms(f, 10) for f in (run_l, run_r, run_w))
+        k2w_ms, k2r_ms = (w1 + w2) / 2, (r1 + r2) / 2
+        routed = takes_tiles(rp, R, X.device)
+        check(not routed or k2w_ms < k2r_ms, f"{label}: routed to K2w at "
+              f"{k2w_ms * 1e3:.1f} us, K2r {k2r_ms * 1e3:.1f}")
+        work = row_work(rp, m, R)
+        b_ms, b_by = bound([work])
+        tc_ms, tc_by = tc_bound([work])
+        recs.append(dict(
+            panel=panel, R=R, routed=routed,
+            work_entries_x_columns=rp.live * R, k2w_ms=k2w_ms,
+            k2r_ms=k2r_ms, library_ms=(l1 + l2) / 2, bound_ms=b_ms,
+            bound_by=b_by, tc_bound_ms=tc_ms, tc_bound_by=tc_by,
+            grid=list(_wide_grid(tp, R)), k2w_vs_k2r=d))
+    say("k2w_sweep", panel=panel, records=recs)
     return recs
 
 
@@ -2081,10 +2312,11 @@ def rtp_solver(name):
 
 
 def rtp_launches(name, maxit):
-    """(K1r, K2r) launches of one RTP solve, worked out from the code:
+    """(K1r, K2) launches of one RTP solve, worked out from the code:
     r0 = B b, then per step the shifted operator B (A q) + lam q (two K1r)
-    and the true residual A x_k (one); AB-RTP adds one K2r per step, A Q on
-    the masked basis."""
+    and the true residual A x_k (one); AB-RTP adds one K2 of ``maxit``
+    columns per step, A Q on the masked basis (:func:`k1r_k2r` names the
+    kernel)."""
     return 3 * maxit + 1, (maxit if name.startswith("ab") else 0)
 
 
@@ -2172,8 +2404,17 @@ def counted(run, want, label):
     return r, launched
 
 
-def k1r_k2r(k1, k2=0):
-    return (0, 0, 0, 0, k1, 0, k2, 0)
+def k1r_k2r(k1, *products):
+    """The launches of a path of ``k1`` K1r and the forward multi-RHS
+    products ``(count, operator, R)``: each on K2w or K2r as the routing
+    rule names it for that operator's form (``ops/spmv_cuda.py:
+    takes_tiles``)."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import takes_tiles
+
+    wide = sum(c for c, op, R in products
+               if takes_tiles(op.fwd_rows, R, op.device))
+    return (0, 0, 0, 0, k1, 0, sum(c for c, _, _ in products) - wide, 0,
+            wide)
 
 
 def finite_result(r, label, nx):
@@ -2208,7 +2449,8 @@ def phase_rtp(P, ptr_min, full):
         run = partial(rtp_solver(name), P.A_op, P.B_op, P.b, P.x_true,
                       tol=0.0, maxit=MAXIT, lam=LAM)
         with HostSyncs() as syncs:
-            r, launched = counted(run, k1r_k2r(*rtp_launches(name, MAXIT)),
+            k1, k2 = rtp_launches(name, MAXIT)
+            r, launched = counted(run, k1r_k2r(k1, (k2, P.A_op, MAXIT)),
                                   label)
         check(int(r.niters) == MAXIT, f"{label}: niters {int(r.niters)}")
         finite_result(r, label, P.A_op.shape[1])
@@ -2226,7 +2468,7 @@ def phase_rtp(P, ptr_min, full):
         ms = per_call_ms(run, reps=5)
         med = float(np.median(ms))
         rec = dict(n=n, solver=name, maxit=MAXIT, lam=LAM,
-                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+                   launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=launched,
                    host_syncs=syncs.count, min_err=float(err.min()),
                    min_err_k=int(err.argmin()) + 1,
                    final_err=float(err[-1]), ptr_min_err=ptr_min,
@@ -2487,9 +2729,11 @@ def phase_lambda_choice(P, full):
                              residual_space=space).numpy()
 
     # (label, kind, launches, call, grid, residual space)
-    calls = [("gcv_lambda ba original", "brent", k1r_k2r(arnoldi_ba, 1),
+    calls = [("gcv_lambda ba original", "brent",
+              k1r_k2r(arnoldi_ba, (1, P.A_op, k)),
               brent("original"), None, "original"),
-             ("discrepancy_lambda ba", "grid", k1r_k2r(arnoldi_ba, 1),
+             ("discrepancy_lambda ba", "grid",
+              k1r_k2r(arnoldi_ba, (1, P.A_op, len(disc_grid))),
               lambda A, B, b, x: reg.discrepancy_lambda(
                   "ba", A, B, b, delta, k=k, lam_grid=disc_grid)[0],
               disc_grid, None)]
@@ -2497,7 +2741,8 @@ def phase_lambda_choice(P, full):
         calls += [
             ("gcv_lambda ba projected", "brent", k1r_k2r(arnoldi_ba),
              brent("projected"), None, "projected"),
-            ("gcv_curve ba original", "curve", k1r_k2r(arnoldi_ba, 1),
+            ("gcv_curve ba original", "curve",
+             k1r_k2r(arnoldi_ba, (1, P.A_op, k)),
              lambda A, B, b, x: reg.gcv_curve(
                  "ba", A, B, b, k, gcv_grid, residual_space="original"),
              gcv_grid, "original"),
@@ -2505,7 +2750,9 @@ def phase_lambda_choice(P, full):
              lambda A, B, b, x: reg.gcv_surface(
                  "ba", A, B, b, range(1, k + 1), surf_grid)[0], surf_grid,
              "projected"),
-            ("discrepancy_lambda ab", "grid", k1r_k2r(2 * k, 2),
+            ("discrepancy_lambda ab", "grid",
+             k1r_k2r(2 * k, (1, P.B_op, len(disc_grid)),
+                     (1, P.A_op, len(disc_grid))),
              lambda A, B, b, x: reg.discrepancy_lambda(
                  "ab", A, B, b, delta, k=k, lam_grid=disc_grid)[0],
              disc_grid, None),
@@ -2528,7 +2775,8 @@ def phase_lambda_choice(P, full):
         t0 = time.perf_counter()
         ref = call(A64, B64, b64, x64)
         host_s = time.perf_counter() - t0
-        rec = dict(launches_k1r_k2r=(launched[4], launched[6]),
+        rec = dict(launches_k1r_k2r_k2w=(launched[4], launched[6],
+                                         launched[8]),
                    card_s=card_s, host_f64_s=host_s)
         if kind == "brent":
             gap = abs(got - ref) / ref
@@ -2718,7 +2966,7 @@ DENSE_DRIVERS = ("equivalence", "error_surface", "filter_factors_exp",
 
 
 def phantom_gpu_launches(res):
-    """(K1, K2, K3, K4, K1r, K3r, K2r, K4r) launches of one run of
+    """(K1, K2, K3, K4, K1r, K3r, K2r, K4r, K2w) launches of one run of
     ``phantom2d_gpu``, worked out from the code: four single solves (the
     first, then the best of 3) of 2 maxit + 1 K1r each (B b, then A and B
     per step), the gate-stopped solve of 2 k_stop + 1, and two batched
@@ -2729,7 +2977,7 @@ def phantom_gpu_launches(res):
     maxit = res.cfg.maxit
     k_stop = max(pg.iters_to_gate(res.err_hist, res.gate), 1)
     return (0, 0, 0, 0, 4 * (2 * maxit + 1) + 2 * k_stop + 1, 0,
-            2 * (2 * maxit + 2), 0)
+            2 * (2 * maxit + 2), 0, 0)
 
 
 def phase_phantom2d_gpu(prob, ray_perm, pix_perm, results):
@@ -2765,7 +3013,7 @@ def phase_phantom2d_gpu(prob, ray_perm, pix_perm, results):
     hist, at_min = held_to(res.err_hist, err_ref, "phantom2d_gpu",
                            "float64 host reference")
     say("drivers_rest", driver="phantom2d_gpu", backend=res.backend,
-        run_s=run_s, launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r=launched,
+        run_s=run_s, launches_k1_k2_k3_k4_k1r_k3r_k2r_k4r_k2w=launched,
         min_err=res.min_err, min_err_k=int(np.argmin(res.err_hist)) + 1,
         final_err=res.final_err, batched_min_err_worst=(
             res.batched_min_err_worst), gate=res.gate,
@@ -2976,6 +3224,40 @@ def int4_operators(P, refs=False):
                                   P.prob.x_true[P.pix_perm], gkb=True)
         P4.pool = dict(f64_refs_s=time.perf_counter() - t0)
     return P4
+
+
+def int4_wide_path(P4):
+    """AB-RTP (maxit=100, lam=1e-2, tol=0) on the int4 operators: its
+    launches from the code (A Q on K2w where the rule names it, as on the
+    int8 operators), its result finite, and its error history against the
+    same solve with every product on K2r (the rule's work threshold raised
+    for that run): the first REF_K entries within REF_RTOL, the minimum
+    within REF_MIN_RTOL.  Returns the launches of the K2w run."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops import spmv_cuda
+
+    name, label = "ab_gmres_rtp", f"n={P4.n} int4 ab_gmres_rtp"
+    run = partial(rtp_solver(name), P4.A_op, P4.B_op, P4.b, P4.x_true,
+                  tol=0.0, maxit=MAXIT, lam=LAM)
+    k1, k2 = rtp_launches(name, MAXIT)
+    r, launched = counted(run, k1r_k2r(k1, (k2, P4.A_op, MAXIT)), label)
+    finite_result(r, label, P4.A_op.shape[1])
+    threshold = spmv_cuda.WIDE_WORK
+    spmv_cuda.WIDE_WORK = float("inf")
+    try:
+        r0, launched0 = counted(run, k1r_k2r(k1, (k2, P4.A_op, MAXIT)),
+                                label + " on K2r")
+    finally:
+        spmv_cuda.WIDE_WORK = threshold
+    err, err0 = r.err_hist.cpu().numpy(), r0.err_hist.cpu().numpy()
+    hist, at_min = held_to(err, err0, label, "the same solve on K2r")
+    torch.cuda.synchronize()
+    say("int4_wide_path", n=P4.n, solver=name, launches=launched,
+        launches_on_k2r=launched0, min_err=float(err.min()),
+        min_err_on_k2r=float(err0.min()), hist_rel_diff=hist,
+        min_rel_diff=at_min)
+    return launched
 
 
 def int4_kernels(P, P4):
@@ -3381,7 +3663,7 @@ def phase_variant_path(P, F, full):
         r = solve(F)
         torch.cuda.synchronize()
         launched = counts()
-    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0)
+    want = (0, 0, 0, 0, 2 * MAXIT + 1, 0, 0, 0, 0)
     check(launched == want, f"{label}: {LAUNCHES} launches {launched} in the "
           f"single solve, expected {want}")
     err = r.err_hist.cpu().numpy()
@@ -3519,7 +3801,7 @@ def phase_entry():
     x, res, niters = fn(*args)
     torch.cuda.synchronize()
     launched = counts()
-    want = (0, 0, 0, 0, 2 * STEPS + 1, 0, 0, 0)
+    want = (0, 0, 0, 0, 2 * STEPS + 1, 0, 0, 0, 0)
     check(launched == want, f"entry: {LAUNCHES} launches {launched}, "
           f"expected {want}")
     res = res.cpu().numpy()
@@ -3649,7 +3931,7 @@ def phase_sharded(P, err_ref_ba, gkb_refs, B4=None, tiles=None):
                 nccl = {c: mesh.calls[c] - calls0.get(c, 0)
                         for c in mesh.calls}
                 k1r, k3r = sharded_launches(kind, fwd, steps)
-                want = (0, 0, 0, 0, k1r, k3r, 0, 0)
+                want = (0, 0, 0, 0, k1r, k3r, 0, 0, 0)
                 check(launched == want, f"{label}: {LAUNCHES} launches "
                       f"{launched}, expected {want}")
                 err = r.err_hist.cpu().numpy()
@@ -3894,7 +4176,7 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
                               **gmres_kw),
             lambda: rtp_solver(name)(P.A_op, P.B_op if forward else BT_op.T,
                                      P.b, P.x_true, **gmres_kw),
-            (0, 0, 0, 0, k1r, k3r, 0, 0), None, host=host, maxit=steps)
+            (0, 0, 0, 0, k1r, k3r, 0, 0, 0), None, host=host, maxit=steps)
         recs.append(rec)
         return r
 
@@ -3916,7 +4198,7 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
                        defer_histories=defer, **gmres_kw),
             lambda: single(P.A_op, P.B_op if forward else BT_op.T, b,
                            P.x_true, defer_histories=defer, **gmres_kw),
-            (0, 0, 0, 0, 0, 0, chunks * k2r, chunks * k4r), None,
+            (0, 0, 0, 0, 0, 0, chunks * k2r, chunks * k4r, 0), None,
             host=host_ref[kind, forward], gate=SERVING_GATES[n]
             if kind == "ba" else None, maxit=steps)
         recs.append(rec)
@@ -3932,7 +4214,7 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
         rec, r = sharded_vs_single(
             label, mesh, lambda: gkb[name](A, rhs, x_true, mesh=mesh, **kw),
             lambda: fn(A_single, rhs, x_true, **kw),
-            (0, 0, 0, 0) + want + (0, 0), SHARDED_GKB_BANDS, host=host,
+            (0, 0, 0, 0) + want + (0, 0, 0), SHARDED_GKB_BANDS, host=host,
             maxit=steps)
         recs.append(rec)
 
@@ -4254,7 +4536,7 @@ def phase_sharded_2d(P, BT_op, host_ref, gkb_refs, tiles=None, B4=None):
     def case(label, run_sh, run_1, want, bands=None, host=None, gate=None):
         rec, r = sharded_vs_single(
             f"n={n} {label} (1,1)", axes, run_sh, run_1,
-            (0, 0, 0, 0) + tuple(want), bands, host=host, gate=gate,
+            (0, 0, 0, 0) + tuple(want) + (0,), bands, host=host, gate=gate,
             maxit=steps, phase="sharded_2d")
         recs.append(rec)
         return rec
@@ -4456,15 +4738,16 @@ def tile_checks(P, B4, built, R=8):
 
 
 def kernel_record(name, source, replaces, launches, path_recs, other_recs,
-                  superseded_by=None, **extra):
+                  superseded_by=None, bound_fn=bound, **extra):
     """One entry of the ``kernels`` line.  ``ms``, ``plain_ms``,
     ``library_ms`` and ``bound_ms`` are this kernel's work in one iteration
     of its n=64 path (``path_recs``: A's panel then B's for BA-GMRES, A's
     panel for the GKB solvers); every panel, n=128 included, is listed in
     ``shapes`` with the same keys.  ``superseded_by``: the kernel that runs
     this one's products on the paths now (its own ``launches`` are then
-    those of the path's run: 0)."""
-    b_ms, b_by = bound([s["work"] for s in path_recs])
+    those of the path's run: 0).  ``bound_fn``: :func:`bound` (float32
+    FMA) or :func:`tc_bound` (the tensor cores)."""
+    b_ms, b_by = bound_fn([s["work"] for s in path_recs])
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, on_path=superseded_by is None,
@@ -4532,16 +4815,21 @@ def main():
     fjobs_64 = float_results(builds)
     k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
         phase_ct_kernels(P)
-    lmm_64 = lambda_mm_kernels(P)
+    lmm_64, sweep_64 = lambda_mm_kernels(P)
     phase_small_kernels()
     if "--kernels" in sys.argv[1:]:      # a short call: builds and kernels
-        int4_kernels(P, int4_operators(P))
-        del P
+        P4 = int4_operators(P)
+        int4_kernels(P, P4)
+        lambda_mm_kernels(P4, "int4")
+        int4_wide_path(P4)
+        del P, P4
         torch.cuda.empty_cache()
         P = make_problem(128, adjoint=True)
         phase_ct_kernels(P)
         lambda_mm_kernels(P)
-        int4_kernels(P, int4_operators(P))
+        P4 = int4_operators(P)
+        int4_kernels(P, P4)
+        lambda_mm_kernels(P4, "int4")
         say("stopped", after="kernels")
         return
     release_plain_caches(P)
@@ -4558,10 +4846,13 @@ def main():
     lsqr_launches = gkb["lsqr"][0]
     lsqr_b_launches = gkb_b["lsqr_batched"]
     with PeakMemory("n=64 lambda path"):
-        phase_lambda_path(P, full=True)
+        rtp_64 = phase_lambda_path(P, full=True)
     t0 = time.perf_counter()
     P4 = int4_operators(P, refs=True)
     k1i4_64, k3i4_64, k2i4_64, k4i4_64 = int4_kernels(P, P4)
+    lmm4_64, sweep4_64 = lambda_mm_kernels(P4, "int4")
+    wide4_launches = int4_wide_path(P4)
+    release_plain_caches(P4)
     int4_launches = phase_variant_path(P, P4, full=True)
     del P4
     say("int4_done", n=64, seconds=time.perf_counter() - t0)
@@ -4579,7 +4870,7 @@ def main():
     fjobs_128 = float_results(builds)
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
-    lmm_128 = lambda_mm_kernels(P)
+    lmm_128, sweep_128 = lambda_mm_kernels(P)
     P.A_adj = P.B_adj = None     # the n=128 solves need forward panels
     release_plain_caches(P)
     with PeakMemory("n=128 main path"):
@@ -4595,6 +4886,8 @@ def main():
     t0 = time.perf_counter()
     P4 = int4_operators(P)
     k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
+    lmm4_128, sweep4_128 = lambda_mm_kernels(P4, "int4")
+    release_plain_caches(P4)
     say("int4_done", n=128, seconds=time.perf_counter() - t0)
     float_128 = phase_float_forms(P, fjobs_128)
     # phase sharded_2d's tiles, packed by worker processes from here on
@@ -4645,8 +4938,7 @@ def main():
                       sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
                       + "tile_matvec"),
         kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
-                      serving_launches[6], k2r_64,
-                      k2r_128 + lmm_64 + lmm_128,
+                      serving_launches[6], k2r_64, k2r_128,
                       sharded_launches=batched_128[6],
                       sharded_path="ba_gmres_sharded_batched n=128 R=8 "
                       "in-loop (parallel/panels.py:local_matmat)",
@@ -4667,6 +4959,23 @@ def main():
                       sharded_2d_launches=batched_2d[7],
                       sharded_2d_path="ba_gmres_sharded_batched_2d R=8 "
                       "deferred " + two_d + "tile_rmatmat"),
+        # K2w: the launches of the n=64 AB-RTP solve (A Q at R = maxit a
+        # step); ms etc. of one such product (n=64 A, R=100); its bound the
+        # tensor cores' (the float32 yardstick beside it)
+        kernel_record("wide_matmat", csrc + "tile_spmm.cu", pallas + ":220",
+                      rtp_64["ab_gmres_rtp"][8], lmm_64[:1],
+                      lmm_64[1:] + lmm_128, bound_fn=tc_bound,
+                      fp32_bound_ms=lmm_64[0]["bound_ms"],
+                      replaces_wrapper=pallas + ":343 (takes_tiles)",
+                      sweep=sweep_64 + sweep_128),
+        # K2w's int4 variant (the same kernel, dtype code 3): the launches
+        # of the n=64 int4 AB-RTP solve, the rest as the int8 one's
+        kernel_record("wide_matmat int4", csrc + "tile_spmm.cu",
+                      pallas + ":220", wide4_launches[8], lmm4_64[:1],
+                      lmm4_64[1:] + lmm4_128, bound_fn=tc_bound,
+                      fp32_bound_ms=lmm4_64[0]["bound_ms"],
+                      replaces_wrapper=pallas + ":343 (takes_tiles)",
+                      sweep=sweep4_64 + sweep4_128),
         # the int4 variants (nibble-packed forms), each with the launches
         # of its n=64 int4 path: the single solve (K1), lsqr (K3), the
         # serving batch (K2), lsqr_batched (K4)

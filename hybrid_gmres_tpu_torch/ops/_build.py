@@ -43,6 +43,9 @@ LIBRARIES = {
                  "row_spmm": [_I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
                               _VP, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I,
                               _I, _I, _I, _VP]},
+    "tile_spmm": {"tile_spmm": [_I, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP,
+                                _VP, _VP, _VP, _I64, _I64, _VP, _I, _I, _I,
+                                _I, _I, _I, _VP]},
 }
 _LOCK = threading.Lock()
 _LIBS: dict = {}

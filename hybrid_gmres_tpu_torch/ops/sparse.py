@@ -40,6 +40,9 @@ single-RHS products (``csrc/row_spmv.cu``), built by
 :func:`row_packed_from_bell` from a panel's live blocks, so both forms hold
 the same stored values: the nonzero entries only, in the panel's storage
 type, with 16-bit column indices where the columns allow.
+:class:`TilePacked` (:func:`tile_packed_from_bell`, from the same live
+blocks) holds the same values as the nonempty dense 16 x 16 tiles of the
+tensor-core product for wide right-hand-side blocks (``csrc/tile_spmm.cu``).
 
 The JAX package's two portable reference formats have their twins here
 too, on no kernel's path: :class:`ELLMatrix` (padded row-major ELL,
@@ -503,15 +506,13 @@ def _pack_rows(row, key, col, vals, nrows, ncols, group, device,
         group=int(group), packed4=bool(packed4))
 
 
-def row_packed_from_bell(bell: BucketedBlockELL,
-                         transpose: bool = False) -> RowPacked:
-    """The row-packed form of a panel (``transpose=True``: of its
-    transpose), built from its live blocks: the slots below each position's
-    ``pos_cnt`` on positions that are not bucket padding.  Entries that are
-    exactly zero are dropped; the values keep the panel's storage type, so
-    the form holds the panel's matrix exactly (an int4 panel's as nibble
-    pairs).  Each row's pack order follows the panel's blocks (see
-    :class:`RowPacked`).  Lives on the panel's device."""
+def _live_entries(bell: BucketedBlockELL):
+    """The nonzero entries of a panel's live blocks (the slots below each
+    position's ``pos_cnt`` on positions that are not bucket padding), in
+    the panel's flat order: ``(row, col, vals, key_t)`` with numpy int64
+    rows and columns, the values in the panel's storage type (a 1-D torch
+    tensor on the host) and ``key_t``, each entry's place in the panel's
+    flat block order (the pack order of the transpose)."""
     br, bc = bell.block_shape
     m, n = bell.shape
     pos_off = bell.pos_off.cpu().numpy()
@@ -533,16 +534,214 @@ def row_packed_from_bell(bell: BucketedBlockELL,
     row = slot_row[b] * br + r
     col = bcols[b] * bc + c
     keep = (row < m) & (col < n)
-    row, col = row[keep], col[keep]
     vals = blocks.reshape(-1)[torch.from_numpy(flat[keep])]
     if bell.packed4 and len(vals) and not bool(
             ((vals >= -8) & (vals <= 7)).all()):
         raise ValueError("an int4 panel holds values outside [-8, 7]")
+    return row[keep], col[keep], vals, b[keep] * br + r[keep]
+
+
+def row_packed_from_bell(bell: BucketedBlockELL,
+                         transpose: bool = False) -> RowPacked:
+    """The row-packed form of a panel (``transpose=True``: of its
+    transpose), built from its live blocks: the slots below each position's
+    ``pos_cnt`` on positions that are not bucket padding.  Entries that are
+    exactly zero are dropped; the values keep the panel's storage type, so
+    the form holds the panel's matrix exactly (an int4 panel's as nibble
+    pairs).  Each row's pack order follows the panel's blocks (see
+    :class:`RowPacked`).  Lives on the panel's device."""
+    br, bc = bell.block_shape
+    m, n = bell.shape
+    row, col, vals, key_t = _live_entries(bell)
     if transpose:   # a column's entries by the panel's flat block order
-        return _pack_rows(col, b[keep] * br + r[keep], row, vals, n, m, br,
-                          bell.device, bell.packed4)
+        return _pack_rows(col, key_t, row, vals, n, m, br, bell.device,
+                          bell.packed4)
     return _pack_rows(row, col, col, vals, m, n, bc, bell.device,
                       bell.packed4)
+
+
+# The tile form: the matrix as dense TILE x TILE tiles, the A operands of
+# the tensor cores' mma.m16n8k16 (csrc/tile_spmm.cu).  Rows are cut into
+# panels of PANEL_ROWS (four row groups of TILE rows, one warp each) in the
+# operator's own row order, columns into chunks of TILE.
+TILE = 16
+PANEL_ROWS = 64
+ROW_GROUPS = PANEL_ROWS // TILE
+# One 16-byte load a lane fetches a warp's fragments of this many tiles of
+# its row group, by the bits of a value: 8 bytes a lane per int8 tile, 4 per
+# int4 tile.  A group of tiles takes 512 bytes whatever the type.  bf16 and
+# float32 values are not integers: no tile form (their products keep the
+# row-packed form).
+TILES_PER_LOAD = {8: 2, 4: 4}
+
+
+def _fragment_slots():
+    """(lane, slot) of entry (r, k) of a tile in the s8 A fragment of
+    mma.m16n8k16, ``g = r % 8``: lane 4 g + k // 4, slots 0-3 row g, k 4
+    (lane % 4) .. + 3; slots 4-7 row g + 8."""
+    r, k = np.divmod(np.arange(TILE * TILE), TILE)
+    return (r % 8) * 4 + k // 4, (r // 8) * 4 + k % 4
+
+
+# (lane, slot) of every tile entry
+FRAG = _fragment_slots()
+
+
+@dataclass
+class TilePacked:
+    """A sparse matrix as its nonempty dense tiles: the format of K2 for
+    wide right-hand-side blocks (K2w, ``csrc/tile_spmm.cu``).
+
+    Panel ``p`` holds rows ``PANEL_ROWS p ..``; its entries
+    ``panel_off[p] .. panel_off[p + 1] - 1`` are its nonempty column chunks
+    in ascending order, each ``ent[e] = chunk << 4 | mask``, bit ``w`` of
+    the mask set when row group ``w`` of the panel has a nonzero in the
+    chunk.  The tiles of row group ``g`` (``ROW_GROUPS p + w``) follow each
+    other in chunk order from tile ``rg_off[g]`` on (a multiple of the
+    tiles one load fetches, ``tiles_per_load``; the run is padded with zero
+    tiles to the next one).
+
+    ``vals`` holds the tiles in groups of ``tiles_per_load``, 512 bytes a
+    group: lane ``l``'s 16 bytes of a group hold its A fragment of each
+    tile of the group in turn, 8 entries in slot order (``FRAG``: s8
+    fragments); int4 values as nibble pairs (slot ``2i`` in the low nibble
+    of byte ``i``).  Int8 and int4 values only.  Build with
+    :func:`tile_packed_from_bell`; the product is
+    ``ops.spmv_cuda.wide_matmat``."""
+
+    vals: torch.Tensor       # (groups * 512 bytes,) storage dtype
+    ent: torch.Tensor        # (entries,) int32: chunk << 4 | row-group mask
+    panel_off: torch.Tensor  # (panels + 1,) int32
+    rg_off: torch.Tensor     # (ROW_GROUPS * panels + 1,) int32, in tiles
+    shape: tuple             # (rows, columns)
+    live: int                # stored nonzeros
+    tiles: int               # nonempty tiles (the padding tiles not counted)
+    packed4: bool = False    # values as int4 nibble pairs
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    @property
+    def value_bits(self):
+        return 4 if self.packed4 else 8 * self.vals.element_size()
+
+    @property
+    def tiles_per_load(self):
+        return TILES_PER_LOAD[self.value_bits]
+
+    @property
+    def panels(self):
+        return self.panel_off.shape[0] - 1
+
+    @property
+    def chunks(self):
+        return -(-self.shape[1] // TILE)
+
+    @property
+    def fill(self):
+        """Share of the nonempty tiles' entries that are nonzeros."""
+        return self.live / max(self.tiles * TILE * TILE, 1)
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in
+                   (self.vals, self.ent, self.panel_off, self.rg_off))
+
+    def to(self, device) -> "TilePacked":
+        """The same form on ``device`` (itself if it is there already)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in ("vals", "ent", "panel_off", "rg_off")})
+
+    def tile_index(self):
+        """``(pos, chunk, group)`` of every nonempty tile (int64): its place
+        in ``vals`` (in tiles), its column chunk and its row group."""
+        ent = self.ent.long()
+        counts = (self.panel_off[1:] - self.panel_off[:-1]).long()
+        panel = torch.repeat_interleave(
+            torch.arange(self.panels, device=ent.device), counts)
+        first = (self.panel_off[:-1].long())[panel]
+        out = []
+        for w in range(ROW_GROUPS):
+            e = torch.nonzero((ent >> w) & 1).reshape(-1)
+            # rank of entry e among its panel's entries with bit w set
+            start = torch.searchsorted(e, first[e])
+            rank = torch.arange(e.shape[0], device=ent.device) - start
+            group = ROW_GROUPS * panel[e] + w
+            out.append((self.rg_off.long()[group] + rank, ent[e] >> 4,
+                        group))
+        return tuple(torch.cat(parts) for parts in zip(*out))
+
+    def tile_values(self):
+        """Every tile slot of ``vals`` as a dense (slots, TILE, TILE)
+        tensor of the storage values (int4 decoded to int8), padding tiles
+        included."""
+        g = self.tiles_per_load
+        v = unpack_nibbles(self.vals) if self.packed4 else self.vals
+        frag = v.reshape(-1, 32, g, 8).transpose(1, 2).reshape(-1, 32 * 8)
+        lane, slot = FRAG
+        idx = torch.from_numpy(lane * 8 + slot).to(frag.device)
+        return frag[:, idx].reshape(-1, TILE, TILE)
+
+
+def tile_packed_from_bell(bell: BucketedBlockELL) -> TilePacked:
+    """The tile form of a panel's matrix, built on the host from the live
+    blocks that :func:`row_packed_from_bell` reads, so both forms hold the
+    same stored values.  Lives on the panel's device."""
+    m, n = bell.shape
+    bits = 4 if bell.packed4 else 8 * bell.blocks_flat.element_size()
+    if bits not in TILES_PER_LOAD:
+        raise TypeError(f"tile form: no tiles of {bell.dtype} values")
+    g = TILES_PER_LOAD[bits]
+    row, col, vals, _ = _live_entries(bell)
+    panels = -(-m // PANEL_ROWS)
+    nchunks = -(-n // TILE)
+    group, chunk = row // TILE, col // TILE
+    tile_key, tile_of = np.unique(group * nchunks + chunk,
+                                  return_inverse=True)
+    t_group, t_chunk = np.divmod(tile_key, nchunks)
+    per_group = np.bincount(t_group, minlength=panels * ROW_GROUPS)
+    padded = -(-per_group // g) * g
+    rg_off = np.concatenate([[0], np.cumsum(padded)]).astype(np.int64)
+    if rg_off[-1] >= 2 ** 31:
+        raise ValueError("tile form: more than 2^31 tiles")
+    rank = np.arange(len(tile_key)) - (np.cumsum(per_group) - per_group)[
+        t_group]
+    pos = rg_off[t_group] + rank
+    # the panels' entries: their nonempty chunks, with the row-group masks
+    pkey = (t_group // ROW_GROUPS) * nchunks + t_chunk
+    ent_key, ent_of = np.unique(pkey, return_inverse=True)
+    mask = np.zeros(len(ent_key), np.int64)
+    np.bitwise_or.at(mask, ent_of, 1 << (t_group % ROW_GROUPS))
+    ent_panel, ent_chunk = np.divmod(ent_key, nchunks)
+    panel_off = np.concatenate([[0], np.cumsum(
+        np.bincount(ent_panel, minlength=panels))])
+    # each entry's place in vals: group, lane, tile of the group, slot
+    t = pos[tile_of]
+    within = (row % TILE) * TILE + col % TILE
+    lane, slot = FRAG
+    dest = (((t // g) * 32 + lane[within]) * g + t % g) * 8 + slot[within]
+    out = torch.zeros(int(rg_off[-1]) * TILE * TILE, dtype=vals.dtype)
+    out[torch.from_numpy(dest)] = vals
+    if bell.packed4:
+        out = pack_nibbles(out)
+    i32 = np.int32
+    return TilePacked(
+        vals=out.to(bell.device),
+        ent=torch.from_numpy(((ent_chunk << 4) | mask).astype(i32)).to(
+            bell.device),
+        panel_off=torch.from_numpy(panel_off.astype(i32)).to(bell.device),
+        rg_off=torch.from_numpy(rg_off.astype(i32)).to(bell.device),
+        shape=(int(m), int(n)), live=int(len(row)), tiles=int(len(tile_key)),
+        packed4=bool(bell.packed4))
 
 
 def _to_torch(arr, device, dtype):

@@ -35,6 +35,15 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     column summed exactly as K1/K3 sum it (column j is their product on
     column j, bit for bit); :func:`row_matmat_plain` and
     :func:`row_rmatmat_plain` on a CPU tensor.
+  * :func:`wide_matmat` (K2w, K2 for wide right-hand-side blocks) is the
+    forward multi-RHS product of large work (``R_WIDE`` columns or more,
+    stored entries times columns at least ``WIDE_WORK``) on int8 and int4
+    forms (:func:`takes_tiles`): ``csrc/tile_spmm.cu`` on the tile form of
+    ``ops/sparse.py`` (the nonempty dense 16 x 16 tiles), integer tensor
+    cores on X split per column into four planes of bytes, one call per
+    application; :func:`wide_matmat_plain` on a CPU tensor.  Its columns
+    are K1's within the rounding of X to its column's grid, not bit for
+    bit.
 
 The block-ELL K1-K4 stay as the direct counterparts of the Pallas kernels on
 the same panel; no solver launches them, and a CUDA operator keeps its panels
@@ -58,9 +67,13 @@ from hybrid_gmres_tpu_torch.ops.sparse import (
     MAX_LANES,
     VEC,
     BucketedBlockELL,
+    PANEL_ROWS,
+    TILE,
     RowPacked,
+    TilePacked,
     bucketed_block_ell_from_csr,
     row_packed_from_bell,
+    tile_packed_from_bell,
 )
 from hybrid_gmres_tpu_torch.utils.device import require_device
 
@@ -743,6 +756,200 @@ def row_rmatmat(rp: RowPacked, U, scale=None, out_scale=None, gather=None,
 
 row_rmatmat.launches = 0
 
+# K2w, the forward multi-RHS product on the tile form (csrc/tile_spmm.cu):
+# the operators route a product there on the card when its form holds int8
+# or int4 values, it has at least R_WIDE columns (every product of fewer
+# keeps K2r's bits: serving, the GKB batch, the sharded and tiled products)
+# and its work, stored entries times columns, is at least WIDE_WORK.  K2w
+# pays a fixed cost a call (the split of X, a pass of the grid) that K2r
+# does not, and wins once the work covers it.  Measured on CT n=64 and
+# n=128, A and B, int8 and int4, R = 8..128 (chip_smoke.py's k2w_sweep on
+# the basis' layout, lambda_mm_kernels on row-major blocks too; PERF.md
+# section 6): K2w is faster than K2r at every swept
+# product of at least 2e8 (n=128 A from R=16, n=128 B from R=20, n=64 A
+# int8 from R=64, int4 from R=80) and slower at the largest ones below it
+# (n=128 B at R=16, n=64 B at R=128: 1.9e8).  bf16 and float32 forms keep
+# K2r at every R (their values are not integers).
+R_WIDE = 16
+WIDE_WORK = 200_000_000
+_WIDE_CODES = {torch.int8: 2}
+# K2w's grid: R's blocks of 8 columns shared out among the fewest thread
+# blocks of at most MAX_NT of them each, and each panel's entries in
+# segments of at least SEGMENT_ENTRIES (measured on CT n=64 and n=128,
+# PERF.md).
+MAX_NT = 5
+SEGMENT_ENTRIES = 64
+# rows of X over which the split's first pass takes a column's maximum
+_GROUP_ROWS = 256
+
+
+def takes_tiles(rp: RowPacked, R: int, device) -> bool:
+    """The routing rule of the forward multi-RHS products: K2w
+    (:func:`wide_matmat`) on the card for a form of int8 or int4 values,
+    ``R >= R_WIDE`` and ``rp.live * R >= WIDE_WORK``; otherwise K2r
+    (:func:`row_matmat`).  On the CPU every R keeps
+    :func:`row_matmat_plain`."""
+    return (torch.device(device).type == "cuda" and R >= R_WIDE
+            and rp.live * R >= WIDE_WORK and rp.dtype in _WIDE_CODES)
+
+
+def split_planes(X, chunks: int):
+    """The split of ``csrc/tile_spmm.cu``: for each column of ``X`` (ncols,
+    R), ``x ~ 2^(E-30) M`` with ``2^E <=`` the column's largest ``|x| <
+    2^(E+1)`` and ``M`` the integer nearest ``x 2^(30-E)`` (ties to even;
+    ``|M| < 2^31``: exact for every ``x`` within 2^7 of the largest),
+    cut into its two's complement bytes ``M = 2^24 b0 + 2^16 b1 + 2^8 b2 +
+    b3`` with ``b0`` in [-128, 127] and the others in [0, 255].  Returns
+    ``(planes, scale)``: (4, chunks, 16, R) float32 integers (rows past
+    ncols zero) and the (R,) float32 scales ``2^(E-30)``; zero for a zero
+    column, NaN for one that is not finite."""
+    ncols, R = X.shape
+    V = torch.zeros((chunks * TILE, R), dtype=torch.float64, device=X.device)
+    V[:ncols] = X.to(torch.float32)
+    top = V.abs().amax(0)                                   # (R,)
+    bad = ~torch.isfinite(V).all(0)
+    ok = (top > 0) & ~bad
+    E = torch.frexp(torch.where(ok, top, 1.0)).exponent - 1
+    M = torch.round(torch.ldexp(torch.where(ok[None, :], V, 0.0),
+                                (30 - E)[None, :]))
+    M = M.clamp(-2147483520, 2147483520).to(torch.int64)
+    planes = torch.stack([M >> 24, (M >> 16) & 255, (M >> 8) & 255,
+                          M & 255]).to(torch.float32)
+    scale = torch.ldexp(torch.ones_like(top), E - 30).to(torch.float32)
+    scale = torch.where(ok, scale, 0.0)
+    return (planes.view(4, chunks, TILE, R),
+            torch.where(bad, float("nan"), scale))
+
+
+def wide_matmat_plain(tp: TilePacked, X, scale=None):
+    """Plain PyTorch ``Y = diag(scale) Q X`` on the tile form: ``X`` split
+    as the kernel splits it (:func:`split_planes`), the products of the
+    stored values with the integers ``M`` summed exactly
+    (float64 holds every such sum of int8 and int4 values), times the
+    column's and the row's scale, and rounded once to float32: what the
+    kernel computes with one segment per panel, bit for bit.  Returns ``X.dtype``,
+    row-major (rows, R)."""
+    rows, ncols = tp.shape
+    R = X.shape[1]
+    pos, chunk, group = tp.tile_index()
+    Q = tp.tile_values()[pos].to(torch.float64)       # (tiles, 16, 16)
+    planes, col_scale = split_planes(X, tp.chunks)
+    M = ((planes[0].double() * 256 + planes[1].double()) * 256
+         + planes[2].double()) * 256 + planes[3].double()   # (chunks, 16, R)
+    acc = torch.zeros((tp.rg_off.shape[0] - 1, TILE, R), dtype=torch.float64,
+                      device=X.device)
+    acc.index_add_(0, group, Q @ M[chunk])            # exact: any order
+    y = acc.reshape(-1, R)[:rows] * col_scale.double()
+    if scale is not None:
+        y = scale.double()[:, None] * y
+    return y.to(torch.float32).to(X.dtype)
+
+
+def _wide_grid(tp: TilePacked, R: int):
+    """K2w's grid: ``(blocks of columns, segments per panel)``: R's
+    ``ceil(R / 8)`` blocks of 8 columns in the fewest blocks of at most
+    MAX_NT of them, each panel's entries in segments of at least
+    SEGMENT_ENTRIES on average."""
+    panels = max(tp.panels, 1)
+    nb = -(-(-(-R // 8)) // MAX_NT)
+    nseg = tp.ent.numel() // (panels * SEGMENT_ENTRIES)
+    return nb, int(min(max(nseg, 1), 65535))
+
+
+def _wide_checks(tp: TilePacked, X, scale, out):
+    """The argument checks of K2w, on any device; returns the dtype code and
+    the float32 contiguous scale (or None)."""
+    rows, ncols = tp.shape
+    if X.ndim != 2 or X.shape[0] != ncols:
+        raise ValueError(f"wide_matmat: input has shape {tuple(X.shape)}, the "
+                         f"operator needs {(ncols, 'R')}")
+    code = 3 if tp.packed4 else _WIDE_CODES.get(tp.dtype)
+    if code is None or (tp.packed4 and tp.dtype != torch.int8):
+        raise TypeError(f"wide_matmat: no kernel for {tp.dtype} values")
+    R = X.shape[1]
+    if scale is not None:
+        scale = scale.to(device=X.device, dtype=torch.float32).contiguous()
+        if scale.shape != (rows,):
+            raise ValueError(f"wide_matmat: scale must have shape {(rows,)}")
+    if out is not None and (tuple(out.shape) != (rows, R)
+                            or out.device != X.device):
+        raise ValueError(f"wide_matmat: out must be {(rows, R)} on "
+                         f"{X.device}")
+    return code, scale
+
+
+def wide_matmat(tp: TilePacked, X, scale=None, out=None):
+    """``Y = diag(scale) Q X`` for ``X`` (ncols, R) through K2w: the CUDA
+    kernels for a CUDA ``X`` (the split of ``X`` into planes of bytes, then
+    the tensor-core product), the plain version for a CPU ``X``.
+
+    One call per product whatever R.  ``X`` is read through its strides;
+    ``Y`` comes back in its orientation (for the transposed view of an (R,
+    ncols) tensor, the transposed view of a contiguous (R, rows) one);
+    ``out``: an (rows, R) tensor of ``X``'s device, any strides, written in
+    place when float32.  The grid is :func:`_wide_grid`'s; a thread block
+    whose columns of ``X`` are all zero (AB-RTP's masked basis past the
+    step) walks none of the form.
+    ``wide_matmat.launches`` counts the calls that launched the kernels
+    (the split, the product and, with segments, their sum)."""
+    code, scale = _wide_checks(tp, X, scale, out)
+    if X.device.type == "cpu":
+        Y = wide_matmat_plain(tp, X, scale)
+        return Y if out is None else out.copy_(Y)
+    if X.device.type != "cuda":
+        raise ValueError(f"wide_matmat: unsupported device {X.device}")
+    if tp.device != X.device:
+        raise ValueError(f"wide_matmat: form on {tp.device}, input on "
+                         f"{X.device}")
+    if tp.vals.data_ptr() % 16:
+        raise ValueError("wide_matmat: values must start on a 16-byte "
+                         "boundary")
+    rows, ncols = tp.shape
+    R = X.shape[1]
+    nb, nseg = _wide_grid(tp, R)
+    X32 = X.to(torch.float32)
+    if out is not None:
+        Y = out if out.dtype == torch.float32 else torch.empty(
+            (rows, R), dtype=torch.float32, device=X.device)
+    elif X32.stride(0) == 1 and X32.stride(1) >= max(ncols, 1):
+        Y = torch.empty((R, rows), dtype=torch.float32, device=X.device).T
+    else:
+        Y = torch.empty((rows, R), dtype=torch.float32, device=X.device)
+    if rows and R:
+        from hybrid_gmres_tpu_torch.ops._build import load_library
+
+        with torch.profiler.record_function("wide_matmat"):
+            # the split chunks (four planes of bytes, 64 a column of a
+            # chunk) and the split's column maxima, exponents and scales
+            xs = torch.empty(tp.chunks * 64 * 8 * -(-R // 8),
+                             dtype=torch.uint8, device=X.device)
+            words = torch.empty((-(-ncols // _GROUP_ROWS) + 2) * R,
+                                dtype=torch.float32, device=X.device)
+            part = None if nseg == 1 else torch.empty(
+                (nseg, tp.panels * PANEL_ROWS, R), dtype=torch.float32,
+                device=X.device)
+            lib = load_library("tile_spmm")
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            err = lib.tile_spmm(
+                code, tp.vals.data_ptr(), tp.ent.data_ptr(),
+                tp.panel_off.data_ptr(), tp.rg_off.data_ptr(),
+                X32.data_ptr(), X32.stride(0), X32.stride(1), xs.data_ptr(),
+                words.data_ptr(),
+                None if scale is None else scale.data_ptr(), Y.data_ptr(),
+                Y.stride(0), Y.stride(1),
+                None if part is None else part.data_ptr(), rows, ncols, R,
+                nb, nseg, tp.panels, ctypes.c_void_p(stream))
+        if err:
+            raise RuntimeError(f"wide_matmat: CUDA launch failed "
+                               f"(cudaError {err})")
+        wide_matmat.launches += 1
+    if out is not None:
+        return out if Y is out else out.copy_(Y)
+    return Y.to(X.dtype)
+
+
+wide_matmat.launches = 0
+
 
 def _row_quantize_csr(csr, qmax: int = 127):
     """Per-row symmetric integer quantization: ``A ~= diag(s) Q`` with
@@ -790,7 +997,10 @@ class BlockELLOperator(LinearOperator):
 
     ``matvec`` and ``matmat`` run the redesigned K1 and K2
     (:func:`row_matvec`, :func:`row_matmat`) on the form of the forward
-    panel; ``rmatvec`` and ``rmatmat`` the redesigned K3 and K4
+    panel, and ``matmat`` on the card K2w (:func:`wide_matmat`) on its
+    tile form where :func:`takes_tiles` says so (int8 and int4 panels, large
+    products; the form is built at the first such product: single solves
+    and serving never build it); ``rmatvec`` and ``rmatmat`` the redesigned K3 and K4
     (:func:`row_rmatvec`, :func:`row_rmatmat`) on ``adj_rows``: the form of
     the transpose of the forward panel (``with_adjoint=False``, what
     ``ct_gpu_operators`` builds by default), or of the adjoint panel when
@@ -813,6 +1023,8 @@ class BlockELLOperator(LinearOperator):
     of the card beside the forms.  :meth:`panels_on_device` puts them on
     the card for the block-ELL kernels K1-K4.
     """
+
+    _tiles = None   # the tile form of K2w, built at the first wide product
 
     def __init__(self, fwd: BucketedBlockELL, adj=None, fwd_scale=None,
                  adj_scale=None, fro_sq=None):
@@ -880,6 +1092,7 @@ class BlockELLOperator(LinearOperator):
         op = copy.copy(self)
         op.fwd_rows = self.fwd_rows.to(device)
         op.adj_rows = self.adj_rows.to(device)
+        op._tiles = None if self._tiles is None else self._tiles.to(device)
         for name in ("fwd_scale", "adj_scale", "fro_sq"):
             t = getattr(self, name)
             setattr(op, name, None if t is None else t.to(device))
@@ -921,14 +1134,32 @@ class BlockELLOperator(LinearOperator):
         # reads it, so the pair is an exact transpose by construction
         return row_rmatvec(self.adj_rows, u, self.fwd_scale, self.adj_scale)
 
+    @property
+    def fwd_tiles(self) -> TilePacked:
+        """The tile form of the forward panel (K2w's), built from the host
+        panel at the first product that :func:`takes_tiles` routes to K2w
+        and kept on the operator's device."""
+        if self._tiles is None:
+            self._tiles = tile_packed_from_bell(self.fwd).to(self.device)
+        return self._tiles
+
+    def _wide(self, X):
+        return X.ndim == 2 and takes_tiles(self.fwd_rows, X.shape[1],
+                                           X.device)
+
     def matmat(self, X):
-        """Y (m, R) = A @ X (n, R) through the redesigned K2
-        (:func:`row_matmat`): one read of the form serves the 8 columns of
-        a tile."""
+        """Y (m, R) = A @ X (n, R): K2w (:func:`wide_matmat`, tensor cores
+        on the tile form) where :func:`takes_tiles` says so, else the
+        redesigned K2 (:func:`row_matmat`: one read of the form serves the
+        8 columns of a tile)."""
+        if self._wide(X):
+            return wide_matmat(self.fwd_tiles, X, self.fwd_scale)
         return row_matmat(self.fwd_rows, X, self.fwd_scale)
 
     def matmat_into(self, X, out):
         """``matmat`` written into ``out`` (m, R), any strides, in place."""
+        if self._wide(X):
+            return wide_matmat(self.fwd_tiles, X, self.fwd_scale, out=out)
         return row_matmat(self.fwd_rows, X, self.fwd_scale, out=out)
 
     def rmatmat(self, U):

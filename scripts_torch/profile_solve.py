@@ -10,7 +10,7 @@ serving batch of R=8 sinograms (noise seeds 0..7) with in-loop and with
 deferred histories, the GKB family's ``lsqr`` and ``lsqr_batched`` R=8
 (the redesigned K1 + K3, and K2 + K4, on the row-packed forms), and the
 regularize-then-project solvers ``ba_rtp`` and ``ab_rtp`` (lam=1e-2, the
-redesigned K1, and for AB-RTP one K2 of maxit columns a step) —
+redesigned K1, and for AB-RTP one K2w of maxit columns a step) —
 and times 5 solves of each after one warm-up, all before the first profiler
 session (the profiler slows the host loop after it, too).  Then it runs one
 solve per size and mode under ``torch.profiler`` (CPU and CUDA activities).
@@ -23,10 +23,12 @@ Prints one JSON line per size and mode with:
   * ``launches``: device activities in the trace, and
     ``launches_per_iteration`` = launches / 100;
   * ``kinds``: device milliseconds and activity count by kind.  The
-    multi-RHS products K2r/K4r are told apart by the profiler range their
-    wrapper opens (``row_matmat`` / ``row_rmatmat``): all device work
-    launched inside it, the interleaving copy included, counts as the
-    product.
+    multi-RHS products K2r/K4r/K2w are told apart by the profiler range
+    their wrapper opens (``row_matmat`` / ``row_rmatmat`` /
+    ``wide_matmat``): all device work launched inside it, the interleaving
+    copy and K2w's split and finishing sum included, counts as the product.
+
+    python3 scripts_torch/profile_solve.py ab_rtp ba_rtp   # those modes only
 
 Needs one CUDA card.
 """
@@ -65,7 +67,8 @@ KINDS = (
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the profiler ranges of the multi-RHS wrappers (ops/spmv_cuda.py)
-RANGES = {"row_matmat": "K2 row_matmat", "row_rmatmat": "K4 row_rmatmat"}
+RANGES = {"row_matmat": "K2 row_matmat", "row_rmatmat": "K4 row_rmatmat",
+          "wide_matmat": "K2w wide_matmat"}
 
 
 class Ranges:
@@ -103,6 +106,8 @@ def kind_of(ev, ranges):
     name = ev.get("name", "").lower()
     if "row_spmm_kernel" in name:
         return "row_spmm outside its wrapper's range"
+    if "tile_spmm_kernel" in name or "split_kernel" in name:
+        return "tile_spmm outside its wrapper's range"
     if "row_spmv_kernel" in name:
         # one template for both: the third argument is the gathered input
         # scale, on in K3's mode (the CT operators are int8, scaled)
@@ -198,6 +203,7 @@ def main():
         sys.exit("profile_solve.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    only = set(sys.argv[1:])
     runs = []
     for n in (64, 128):
         P = chip_smoke.make_problem(n)
@@ -213,6 +219,8 @@ def main():
                 ("lsqr_batched R=8", gkb_run("lsqr_batched", P, b8)),
                 ("ba_rtp", rtp_run("ba_gmres_rtp", P)),
                 ("ab_rtp", rtp_run("ab_gmres_rtp", P))):
+            if only and mode not in only:
+                continue
             runs.append((n, mode, run, chip_smoke.per_call_ms(run, reps=5),
                          P.info))
     for run in runs:

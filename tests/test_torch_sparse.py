@@ -371,7 +371,8 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
                                         with_adjoint=False, device="cpu")
     kernels = (tspmv.bucket_matvec, tspmv.bucket_matmat,
                tspmv.bucket_rmatvec, tspmv.bucket_rmatmat, tspmv.row_matvec,
-               tspmv.row_rmatvec, tspmv.row_matmat, tspmv.row_rmatmat)
+               tspmv.row_rmatvec, tspmv.row_matmat, tspmv.row_rmatmat,
+               tspmv.wide_matmat)
     before = [k.launches for k in kernels]
     rng = np.random.default_rng(4)
     b = torch.from_numpy(rng.standard_normal(400))
@@ -388,6 +389,12 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
         rng.standard_normal((400, 3))).float(), maxit=5)
     assert torch.isfinite(rg.res_hist).all()
     assert torch.isfinite(rgb.res_hist).all()
+    # K2w's wrapper on a CPU tensor takes its plain version; the operator's
+    # wide products keep the row form's and build no tile form
+    Xw = torch.from_numpy(rng.standard_normal((300, 20))).float()
+    tp = tsparse.tile_packed_from_bell(A.fwd)
+    assert torch.isfinite(tspmv.wide_matmat(tp, Xw, A.fwd_scale)).all()
+    assert torch.isfinite(A.matmat(Xw)).all() and A._tiles is None
     assert [k.launches for k in kernels] == before
     assert not _build._LIBS
 
