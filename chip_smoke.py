@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels   # build and kernel phases only
     python3 chip_smoke.py --sharded   # build and the three sharded phases
     python3 chip_smoke.py --float     # build, float_forms and entry
+    python3 chip_smoke.py --windows   # build and the window kernel's phase
 
 Builds the port's CUDA kernels from ``hybrid_gmres_tpu_torch/csrc`` (five
 libraries, nine kernels: the block-ELL K1-K4, the redesigned K1-K4 on the
@@ -237,6 +238,25 @@ routed shape faster on K2w than on K2r (``k2w_sweep``: where the rule comes
 from).  The int4 phase does the same on the int4 forms and runs AB-RTP on
 them against the same solve on K2r (``int4_wide_path``).
 
+Phase 3 also holds the window kernel (``window_kernels``: ``row_matmat`` and
+``row_rmatmat`` with ``gather="window"``, each thread block's columns of X
+staged in shared memory from the form's window form), which the multi-RHS
+products take where ``takes_windows`` says so (a form that kept its window
+form when it was made on the card, R's last tile over 4 columns), on the
+four forms (A and B, forward and transposed) of each storage type at both
+sizes (a form that kept none gets one for the check): against the plain
+version at R in {1, 3, 5, 8, 12} in both layouts, column j bit-equal to
+K1r (K3r) on column j, to itself run twice, to the gather kernel
+(``row_spmm_kernel``) and to ``out=`` through a taller slab's rows; timed
+at R in WINDOW_TIMED_RS in
+turns with the gather kernel, at R=8 beside the library call and the bound
+of the window form's HBM bytes, with the bytes the staging copies from L2
+and the window form's reuse, bytes and build seconds.  Its launches are
+counted apart (``window_counts``) and checked in the serving and GKB
+batched runs, and every kernel the ``kernels`` line puts on a path was
+launched there: the gathers' launches are the serving and ``lsqr_batched``
+runs' at both sizes less the window kernel's.
+
 Every phase that fails exits non-zero.  The last three lines are the kernel
 record ``{"kernels": [...]}`` (the int4, bfloat16 and float32 variants as
 entries of their own),
@@ -244,11 +264,14 @@ the card's name and power limit, and the result ``{"ok": true, "device":
 {...}}``.  ``--kernels`` stops after phase 3 and the int4 kernel checks (at
 both sizes) and prints neither; ``--sharded`` runs only phases 12-14
 (their float64 references computed for them) and prints neither;
-``--float`` runs only phases 15-16 and prints neither.
+``--float`` runs only phases 15-16 and prints neither; ``--windows`` runs
+only the window kernel's phase (every storage type, both sizes) and prints
+neither.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -425,10 +448,13 @@ MEMORY = {}
 class PeakMemory:
     """Device memory of the block it wraps: ``max_memory_allocated`` after
     a reset of the peak on entry, beside what was allocated on entry (the
-    operators and anything else resident)."""
+    operators and anything else resident); with ``ops``, also the window
+    forms their row forms hold (``RowPacked.wins``, made with the forms:
+    MB and build seconds)."""
 
-    def __init__(self, path):
+    def __init__(self, path, ops=()):
         self.path = path
+        self.ops = ops
 
     def __enter__(self):
         import torch
@@ -445,7 +471,16 @@ class PeakMemory:
         MEMORY[self.path] = dict(
             peak_mb=torch.cuda.max_memory_allocated() / 1e6,
             resident_at_start_mb=self.resident / 1e6)
-        say("memory", path=self.path, **MEMORY[self.path])
+        windows = {}
+        for tag, op in zip("AB", self.ops):
+            for form, rp in (("forward", op.fwd_rows),
+                             ("transposed", op.adj_rows)):
+                wf = rp.wins
+                if wf is not None:
+                    windows[f"{tag} {form}"] = dict(mb=wf.nbytes / 1e6,
+                                                    build_s=wf.seconds)
+        say("memory", path=self.path, **MEMORY[self.path],
+            window_forms=windows)
 
 
 def phase_device():
@@ -589,12 +624,29 @@ def quantized_csr(csr, qmax=127):
     return (sp.diags(s.astype(np.float64)) @ csr_q).tocsr()
 
 
+# library_csr's matrices, kept through one size's kernel phases (each
+# phase asks for the same few) and dropped before its paths
+# (drop_libraries), whose memory they would count
+LIBRARIES = {}
+
+
 def library_csr(csr, transpose=False, qmax=127):
     """The library's format of the same matrix (or of its transpose): a
     float32 ``torch.sparse`` CSR tensor on the card (cuSPARSE), 32-bit
     indices; ``qmax``: the quantization of the panel (7 for int4)."""
-    q = quantized_csr(csr.astype(np.float64), qmax)
-    return library_of(q.T.tocsr() if transpose else q)
+    key = (id(csr), transpose, qmax)
+    if key not in LIBRARIES:
+        q = quantized_csr(csr.astype(np.float64), qmax)
+        LIBRARIES[key] = (csr, library_of(q.T.tocsr() if transpose else q))
+    return LIBRARIES[key][1]
+
+
+def drop_libraries():
+    """Let library_csr's matrices go (before a size's paths)."""
+    import torch
+
+    LIBRARIES.clear()
+    torch.cuda.empty_cache()
 
 
 def library_of(q):
@@ -825,16 +877,20 @@ def row_kernels(op, csr, common, rng):
     return recs
 
 
-def variants_for(X):
-    """The variants a multi-RHS kernel can run on input ``X``, as
-    ``{"gather/threads": keywords}``: the gather through its strides and
-    after an interleaving copy always, packed as it is where it is
-    row-major on 16-byte rows, each at both block sizes."""
+def variants_for(rp, X):
+    """The variants a multi-RHS kernel can run on form ``rp`` and input
+    ``X``, as ``{"gather/threads": keywords}``: the gather through its
+    strides and after an interleaving copy always, packed as it is where
+    it is row-major on 16-byte rows, each at both block sizes; and the
+    window kernel where the form holds a window form."""
+    from hybrid_gmres_tpu_torch.ops.sparse import WINDOW_THREADS
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import BLOCK_THREADS, _packable
 
     gathers = ["strided", "copy"] + (["packed"] if _packable(X) else [])
     return {f"{g}/{t}": dict(gather=g, threads=t) for g in gathers
-            for t in BLOCK_THREADS}
+            for t in BLOCK_THREADS} | ({
+                f"window/{WINDOW_THREADS}": dict(gather="window")}
+                if rp.wins is not None else {})
 
 
 def mm_sweep(rp, fn, plain, single, V, args, label, old=None, scale=None,
@@ -871,7 +927,7 @@ def mm_sweep(rp, fn, plain, single, V, args, label, old=None, scale=None,
                                     *args)).abs().max()) for j in range(R)))
             runs = [fn(rp, layout, *args)] + [
                 fn(rp, layout, *args, **kw)
-                for kw in (variants_for(layout).values() if R == 8
+                for kw in (variants_for(rp, layout).values() if R == 8
                            else ())]
             if into:
                 slab = torch.full((R, rows + 5), float("nan"), device="cuda")
@@ -901,15 +957,17 @@ def row_mm_kernels(op, csr, common, rng):
     (K3) on column j, bit for bit; twice and in every gather and block size
     (the same bits); K2 written through the strides of a taller slab's rows
     (the same bits); ``<A X, U>`` against ``<X, A^T U>`` column by column;
-    the library call.  Timed at R=8 in the solvers' layout, in turns
-    (plain, kernel, kernel, plain), beside each variant, the block-ELL
-    kernel, eight launches of the single-RHS kernel and the library call,
-    against the bound from the form's live bytes.  Returns the records of
-    (K2, K4)."""
+    the library call.  The gather kernel (``ms``: its default gather and
+    block size, :func:`gather_of`, whichever kernel the rule routes to;
+    the window kernel's own times are :func:`window_kernels`') timed at
+    R=8 in the solvers' layout, in turns (plain, kernel, kernel, plain),
+    beside each variant, the block-ELL kernel, eight launches of the
+    single-RHS kernel and the library call, against the bound from the
+    form's live bytes.  Returns the records of (K2, K4)."""
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        _gather_for, _threads_for, bucket_matmat, bucket_rmatmat, row_matmat,
+        bucket_matmat, bucket_rmatmat, row_matmat,
         row_matmat_plain, row_matvec, row_rmatmat, row_rmatmat_plain,
         row_rmatvec)
 
@@ -936,12 +994,14 @@ def row_mm_kernels(op, csr, common, rng):
         got8 = fn(rp, Vt, *args)
         lib_diff = rel_err(lib @ V8, got8)
         check(lib_diff <= LIBRARY_RTOL, f"{label} vs library {lib_diff:.3e}")
-        run_k = partial(fn, rp, Vt, *args)
+        k4 = kernel.startswith("K4")
+        gkw = gather_of(rp, Vt, scaled=k4)
+        run_k = partial(fn, rp, Vt, *args, **gkw)
         run_p = partial(plain, rp, Vt, *args)
         p1, k1, k2, p2 = time_ms(run_p, 10), time_ms(run_k), time_ms(run_k), \
             time_ms(run_p, 10)
         variant_ms = {name: time_ms(partial(fn, rp, Vt, *args, **kw))
-                      for name, kw in variants_for(Vt).items()}
+                      for name, kw in variants_for(rp, Vt).items()}
         variant_ms["packed, row-major input"] = time_ms(
             partial(fn, rp, V8, *args, gather="packed"))
 
@@ -951,16 +1011,14 @@ def row_mm_kernels(op, csr, common, rng):
 
         work = row_work(rp, m, R=8)
         b_ms, b_by = bound([work])
-        gather = _gather_for(rp, Vt, scaled=kernel.startswith("K4"))
         ms = (k1 + k2) / 2
         rec = dict(
             common, kernel=kernel, R=8, ms=ms, plain_ms=(p1 + p2) / 2,
             library_ms=time_ms(lambda: lib @ Vt),
             block_ell_ms=time_ms(partial(old, Vt, scale)),
             single_x8_ms=time_ms(run_singles, 10), bound_ms=b_ms,
-            bound_by=b_by, share_of_bound=b_ms / ms, work=work,
-            gather=gather, threads=_threads_for(rp, gather),
-            variant_ms=variant_ms,
+            bound_by=b_by, share_of_bound=b_ms / ms, work=work, **gkw,
+            routed=routed_gather(rp, Vt, scaled=k4), variant_ms=variant_ms,
             max_abs_err=abs_err, max_rel_err=worst, vs_block_ell=vs_old,
             column_vs_single_max_diff=col_diff,
             repeat_variant_out_max_diff=var_diff,
@@ -979,6 +1037,160 @@ def row_mm_kernels(op, csr, common, rng):
     recs[1]["transpose_identity_gap"] = gap
     for rec in recs:
         say("kernel_vs_plain", **rec)
+    return recs
+
+
+def window_work(rp, wf, n_scale, R=8):
+    """Bytes of one product of R columns on the window kernel's path: the
+    live values and their 16-bit local indices, the lists, the window and
+    row offsets and the row map, X read once, the scale and Y written once
+    (the HBM bound); and the bytes the staging copies from L2 into shared
+    memory, 32 a listed column a tile of 8."""
+    rows, ncols = rp.shape
+    tiles = -(-R // 8)
+    hbm = (rp.live * (rp.value_bits / 8 + 2) + 4 * wf.listed
+           + 8 * (wf.windows + 1) + 4 * (rows + 1) + 4 * rows
+           + 4 * ncols * R + 4 * n_scale + 4 * rows * R)
+    return (hbm, 2 * rp.live * R), 32 * wf.listed * tiles
+
+
+def window_form_record(wf):
+    """A window form: windows, rows, lists, reuse (stored slots a listed
+    column), bytes, build seconds."""
+    return dict(windows=wf.windows, rows_per_window=wf.rows_per_window,
+                full_windows=int(((wf.win_row[1:] - wf.win_row[:-1])
+                                  == wf.rows_per_window).sum()),
+                max_cols=wf.max_cols, listed=wf.listed, reuse=wf.reuse,
+                window_mb=wf.nbytes / 1e6, build_s=wf.seconds)
+
+
+WINDOW_RS = (1, 3, 5, 8, 12)
+# the widths the window kernel is timed at against the gather kernel: the
+# checked ones, the serving chunks' (8), the batched solvers' R=16 and the
+# GCV product's R=20 (n=64: K2r, not K2w)
+WINDOW_TIMED_RS = (1, 3, 5, 8, 12, 16, 20)
+
+
+def window_kernels(P, V, variant, library):
+    """The window kernel (``gather="window"``: each block's columns of X
+    staged in shared memory) on the four forms of one size's ``variant``
+    operators ``V`` (A and B, forward and transposed; a form that kept no
+    window form, ``RowPacked.wins``, checked and timed on a copy given
+    one): against the plain version at R in WINDOW_RS in the row-major
+    and the solvers' layout, column j against the single-RHS kernel
+    (K1r/K3r) on column j, against itself run twice, the gather kernel
+    (:func:`gather_of`) and the routed default, K2 also written through a
+    taller slab's rows: all the same bits.  Timed in the solvers' layout
+    in turns with the gather kernel (old, window, window, old) at R in
+    WINDOW_TIMED_RS (``by_R``, with the rule's choice at each); at R=8
+    beside the window kernel on a row-major X (16-byte staging), the
+    library call and the bound (HBM bytes of the window form's path), with
+    the bytes the staging copies.  Returns ``{"K2": [...], "K4": [...]}``
+    (A's forms, then B's)."""
+    import torch
+
+    from hybrid_gmres_tpu_torch.ops.sparse import row_windows_from
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
+        row_matmat, row_matmat_plain, row_matvec, row_rmatmat,
+        row_rmatmat_plain, row_rmatvec, takes_windows)
+
+    rng = np.random.default_rng(6)
+    recs = {"K2": [], "K4": []}
+    width = max(WINDOW_TIMED_RS)
+    for tag, op, csr in (("A", V.A_op, P.A_csr), ("B", V.B_op, P.B_csr)):
+        m, n = op.shape
+        s = op.fwd_scale
+        lib, lib_t = library(csr, op)
+        X = torch.as_tensor(rng.standard_normal((n, width)),
+                            dtype=torch.float32, device="cuda")
+        U = torch.as_tensor(rng.standard_normal((m, width)),
+                            dtype=torch.float32, device="cuda")
+        for kernel, rp, fn, plain, single, Vall, args, lv in (
+                ("K2", op.fwd_rows, row_matmat, row_matmat_plain, row_matvec,
+                 X, (s,), lib),
+                ("K4", op.adj_rows, row_rmatmat, row_rmatmat_plain,
+                 row_rmatvec, U, (s, op.adj_scale), lib_t)):
+            label = (f"n={P.n} {tag}{'' if kernel == 'K2' else '^T'} "
+                     f"{variant}: {kernel} window")
+            kept = rp.wins is not None
+            rw = rp
+            if not kept:    # a copy with a window form, for the check
+                rw = copy.copy(rp)
+                rw.wins = row_windows_from(rp)
+                check(rw.wins is not None, f"{label}: no window form")
+            form = window_form_record(rw.wins)
+            scaled = kernel == "K4" and s is not None
+            rows = rp.shape[0]
+            worst = abs_err = 0.0
+            same = True
+            for R in WINDOW_RS:
+                VR = Vall[:, :R].contiguous()
+                want = plain(rp, VR, *args)
+                for layout in (VR, VR.T.contiguous().T):
+                    got = fn(rw, layout, *args, gather="window")
+                    runs = [fn(rw, layout, *args, gather="window"),
+                            fn(rp, layout, *args),
+                            fn(rp, layout, *args,
+                               **gather_of(rp, layout, scaled))]
+                    cols = [single(rp, layout[:, j].contiguous(), *args)
+                            for j in range(R)]
+                    if kernel == "K2":
+                        slab = torch.full((R, rows + 5), float("nan"),
+                                          device="cuda")
+                        fn(rw, layout, *args, out=slab[:, :rows].T,
+                           gather="window")
+                        runs.append(slab[:, :rows].T)
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape == (rows, R) and
+                          bool(torch.isfinite(got).all()),
+                          f"{label} output not finite or misshaped at R={R}")
+                    if kernel == "K2":
+                        check(bool(slab[:, rows:].isnan().all()),
+                              f"{label}: out= wrote past its rows")
+                    worst = max(worst, rel_err(got, want))
+                    abs_err = max(abs_err, float((got - want).abs().max()))
+                    same &= all(torch.equal(got, y) for y in runs)
+                    same &= all(torch.equal(got[:, j], c)
+                                for j, c in enumerate(cols))
+            check(worst <= KERNEL_RTOL, f"{label} vs plain {worst:.3e}")
+            check(same, f"{label}: not the bits of the single-RHS kernel, "
+                  "of a second run, of the gather kernel or of out=")
+            by_R = {}
+            for R in WINDOW_TIMED_RS:
+                Vt = Vall[:, :R].contiguous().T.contiguous().T
+                gkw = gather_of(rp, Vt, scaled)
+                run_w = partial(fn, rw, Vt, *args, gather="window")
+                run_o = partial(fn, rp, Vt, *args, **gkw)
+                o1, w1, w2, o2 = (time_ms(f) for f in (run_o, run_w, run_w,
+                                                        run_o))
+                by_R[R] = dict(
+                    ms=(w1 + w2) / 2, gather_ms=(o1 + o2) / 2,
+                    gather_variant=f"{gkw['gather']}/{gkw['threads']}",
+                    vs_gather=(w1 + w2) / (o1 + o2),
+                    routed=("window" if takes_windows(rp, R)
+                            else gkw["gather"]))
+            V8 = Vall[:, :8].contiguous()
+            Vt = V8.T.contiguous().T
+            hbm, staged = window_work(rp, rw.wins, m, R=8)
+            b_ms, b_by = bound([hbm])
+            ms = by_R[8]["ms"]
+            rec = dict(
+                panel=f"n={P.n} {tag} {variant}", kernel=f"{kernel} window",
+                form="forward" if kernel == "K2" else "transposed",
+                shape=list(rp.shape), lanes=rp.lanes, R=8, **by_R[8],
+                kept=kept, by_R=by_R,
+                row_major_ms=time_ms(partial(fn, rw, V8, *args,
+                                             gather="window")),
+                plain_ms=time_ms(partial(plain, rp, Vt, *args), 5),
+                library_ms=time_ms(lambda: lv @ Vt), bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / ms, work=hbm,
+                staged_l2_mb=staged / 1e6,
+                gather_bound_ms=bound([row_work(rp, m, R=8)])[0],
+                max_abs_err=abs_err, max_rel_err=worst, bits_equal=same,
+                **form)
+            say("window_kernels", **rec)
+            recs[kernel].append(rec)
+    release_plain_caches(V)
     return recs
 
 
@@ -1462,6 +1674,60 @@ LAUNCHES = "(K1, K2, K3, K4, K1r, K3r, K2r, K4r, K2w)"
 def reset_counts():
     for wrapper in kernel_wrappers():
         wrapper.launches = 0
+        if hasattr(wrapper, "window_launches"):
+            wrapper.window_launches = 0
+
+
+def window_counts():
+    """Launches of the window kernel as K2r and as K4r since the last reset
+    (``row_matmat.window_launches``, ``row_rmatmat.window_launches``): part
+    of counts()' K2r and K4r."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import row_matmat, row_rmatmat
+
+    return row_matmat.window_launches, row_rmatmat.window_launches
+
+
+def windowed(rp, R):
+    """1 when the rule sends ``rp``'s multi-RHS products of ``R`` columns
+    to the window kernel (``takes_windows``), else 0."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import takes_windows
+
+    return int(takes_windows(rp, R))
+
+
+def gathers_only(fn):
+    """``fn`` run with the window kernel taking no product (every
+    multi-RHS product on the gathers): the same bits, to time a path both
+    ways in one process."""
+    from hybrid_gmres_tpu_torch.ops import spmv_cuda
+
+    def run():
+        rule = spmv_cuda.WINDOW_MIN_TAIL
+        spmv_cuda.WINDOW_MIN_TAIL = spmv_cuda.RHS_TILE
+        try:
+            return fn()
+        finally:
+            spmv_cuda.WINDOW_MIN_TAIL = rule
+
+    return run
+
+
+def gather_of(rp, X, scaled=False):
+    """The gather kernel's variant for a product on ``rp`` of ``X`` where
+    the rule takes no window kernel (``_gather_for``, ``_threads_for``), as
+    the keywords of ``row_matmat``/``row_rmatmat``."""
+    from hybrid_gmres_tpu_torch.ops.spmv_cuda import _gather_for, _threads_for
+
+    g = _gather_for(rp, X, scaled=scaled)
+    return dict(gather=g, threads=_threads_for(rp, g))
+
+
+def routed_gather(rp, X, scaled=False):
+    """The way a multi-RHS product on ``rp`` reads ``X`` by default:
+    ``"window"`` where the rule takes the window kernel, else the gather
+    kernel's (``_gather_for``)."""
+    return ("window" if windowed(rp, X.shape[1])
+            else gather_of(rp, X, scaled)["gather"])
 
 
 def counts():
@@ -1573,6 +1839,17 @@ def counted_batched(P, b, defer, expect_k2, label, x0=None, **kw):
     want = (0, 0, 0, 0, 0, 0, expect_k2, 0, 0)
     check(launched == want, f"{label}: {LAUNCHES} launches {launched}, "
           f"expected {want}")
+    # of them on the window kernel: A's products (MAXIT a scan, one more
+    # from a warm start) and B's (MAXIT + 1 a scan) where the rule routes
+    # their forms there at the scans' width (chunk_rhs=8)
+    warm = int(x0 is not None)
+    scans = (expect_k2 - warm) // (2 * MAXIT + 1)
+    chunk = min(R, 8)
+    want_w = ((scans * MAXIT + warm) * windowed(P.A_op.fwd_rows, chunk)
+              + scans * (MAXIT + 1) * windowed(P.B_op.fwd_rows, chunk), 0)
+    counted_batched.window = window_counts()
+    check(counted_batched.window == want_w, f"{label}: window kernel "
+          f"launches {counted_batched.window}, expected {want_w}")
     check(r.niters.tolist() == [MAXIT] * R, f"{label}: niters "
           f"{r.niters.tolist()}")
     shapes = dict(x=(nx, R), err_hist=(MAXIT, R), res_hist=(MAXIT, R),
@@ -1621,7 +1898,8 @@ def phase_serving(P, single_its, ref0, full):
     scenario (in-loop, deferred, R=16, warm start, a float64 reference per
     column); otherwise R=8 deferred with the float64 reference of column 0
     (``ref0``, the single solve's: seed 0 is column 0).  Returns the
-    launches of counts() in the first counted solve (R=8 deferred)."""
+    launches of counts() in the first counted solve (R=8 deferred), then
+    those of the window kernel as (K2r, K4r) in it (:func:`window_counts`)."""
     import torch
 
     n, R = P.n, 8
@@ -1635,6 +1913,7 @@ def phase_serving(P, single_its, ref0, full):
 
     r_def, first = counted_batched(P, b8, True, cold,
                                    f"n={n} R=8 deferred")
+    first_window = counted_batched.window
     err_def = r_def.err_hist.cpu().numpy()
     minima = err_def.min(axis=0)
     check(bool((minima <= gate).all()), f"n={n} serving: min-over-k errors "
@@ -1654,6 +1933,10 @@ def phase_serving(P, single_its, ref0, full):
     out["f64_ref_min_err"], out["f64_ref_s"] = ref_min, \
         time.perf_counter() - t0
     out["deferred"] = timed_batched(P, b8, True)
+    out["deferred_window_vs_gathers"] = in_turns(
+        f"n={n} R=8 deferred: window kernel vs gathers", {
+            "rule": lambda: solve_batched(P, b8, True),
+            "gathers": gathers_only(lambda: solve_batched(P, b8, True))})
     out["k2r_launches"] = {"R=8 deferred": first[6]}
 
     if full:
@@ -1731,7 +2014,7 @@ def phase_serving(P, single_its, ref0, full):
             out[label.split(" ", 1)[1]] = dict(
                 min_err=m_g.tolist(), solve_ms=ms)
     say("serving_path", **out)
-    return first
+    return first + first_window
 
 
 def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
@@ -1764,6 +2047,13 @@ def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
                                 else (fwd, tr, 0, 0, 0))
         check(launched == want, f"{label}: {LAUNCHES} launches "
               f"{launched}, expected {want}")
+        # the window kernel's share: all of A's K2r (K4r) where the rule
+        # routes its forward (transposed) form there
+        want_w = ((launched[6] * windowed(A_op.fwd_rows, tail[0]),
+                   launched[7] * windowed(A_op.adj_rows, tail[0])) if tail
+                  else (0, 0))
+        check(window_counts() == want_w, f"{label}: window kernel "
+              f"launches {window_counts()}, expected {want_w}")
     check(bool((r.niters == maxit).all()), f"{label}: niters "
           f"{r.niters.tolist()} != {maxit}")
     check(tuple(r.x.shape) == (A_op.shape[1],) + tail and
@@ -1776,6 +2066,7 @@ def gkb_counted(name, A_op, b, x_true, maxit, label, max_syncs=8, **extra):
         check(bool(torch.isfinite(r.ar_hist).all()),
               f"{label}: non-finite ||A^T r|| history")
     gkb_counted.host_syncs = syncs.count
+    gkb_counted.window = window_counts()
     return r, launched
 
 
@@ -1870,7 +2161,8 @@ def phase_gkb_serving(P, names, ref0, full):
     and column 0 against the float64 host reference ``ref0[name]``, solver
     and RHS it/s; with ``full`` also hybrid LSQR with an (R,) lambda against
     the scalar call and a resume 40 -> 100 against the uninterrupted run,
-    both exactly.  Returns ``{name: launches}``."""
+    both exactly.  Returns ``{name: launches}``: counts() of the first run,
+    then the window kernel's (K2r, K4r) in it."""
     import torch
 
     n, R = P.n, 8
@@ -1881,6 +2173,7 @@ def phase_gkb_serving(P, names, ref0, full):
         label = f"n={n} {name} R={R}"
         single = name.replace("_batched", "")
         r, launched = gkb_counted(name, P.A_op, b8, P.x_true, MAXIT, label)
+        window = gkb_counted.window
         err = r.err_hist.cpu().numpy()
         rec = dict(n=n, solver=name, R=R, maxit=MAXIT,
                    lam=LAM if "hybrid" in name else None,
@@ -1927,8 +2220,14 @@ def phase_gkb_serving(P, names, ref0, full):
                   "uninterrupted run")
             rec["resume_equals_uninterrupted"] = same
         rec.update(gkb_timed(name, P.A_op, b8, P.x_true, MAXIT))
+        fnb, kwb = gkb_solver(name)
+        run = partial(fnb, P.A_op, b8, P.x_true, tol=0.0, maxit=MAXIT,
+                      **kwb)
+        rec["window_vs_gathers"] = in_turns(
+            f"{label}: window kernel vs gathers",
+            {"rule": run, "gathers": gathers_only(run)})
         say("gkb_serving_path", **rec)
-        out[name] = launched
+        out[name] = launched + window
     return out
 
 
@@ -3260,11 +3559,21 @@ def int4_wide_path(P4):
     return launched
 
 
+def int8_library(csr, op):
+    """(the library's matrix, its transpose): ``torch.sparse`` CSR on the
+    card of the int8 diag(s) Q of ``csr``."""
+    return library_csr(csr), library_csr(csr, transpose=True)
+
+
+def int4_library(csr, op):
+    """The same for the int4 diag(s) Q."""
+    return library_csr(csr, qmax=7), library_csr(csr, transpose=True, qmax=7)
+
+
 def int4_kernels(P, P4):
     """The redesigned K1-K4 on the int4 forms of one size
     (:func:`form_kernels`), the library call on the int4 diag(s) Q."""
-    return form_kernels(P, P4, "int4", lambda csr, op: (
-        library_csr(csr, qmax=7), library_csr(csr, transpose=True, qmax=7)))
+    return form_kernels(P, P4, "int4", int4_library)
 
 
 def form_kernels(P, V, variant, library, sweep=False):
@@ -3274,17 +3583,19 @@ def form_kernels(P, V, variant, library, sweep=False):
     (K4's) column j against K1 (K3) on column j (the same bits), the
     library call (``library(csr, op)``: the matrix and its transpose as
     ``torch.sparse`` CSR), timed in turns beside the int8 kernel on the
-    same input, against the bound from the form's live bytes, with the
+    same input (K2 and K4: the gather kernel, :func:`gather_of`, on both),
+    against the bound from the form's live bytes, with the
     registers and spills of the storage type's variants (``spills``).  The
     forms' bytes against the int8 forms' (smaller for int4).  ``sweep``:
     K2 and K4 at R=8 also in every gather and block size, the same bits,
-    each timed, the fastest against the default (``_gather_for``,
-    ``_threads_for``).  Returns the records of (K1, K3, K2, K4), A's panel
-    then B's."""
+    each timed, the fastest against the default (the window kernel where
+    the rule takes it, else ``_gather_for``, ``_threads_for``).  Returns
+    the records of (K1, K3, K2, K4), A's panel then B's."""
     import torch
 
+    from hybrid_gmres_tpu_torch.ops.sparse import WINDOW_THREADS
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        _gather_for, _threads_for, row_matmat, row_matmat_plain, row_matvec,
+        _threads_for, row_matmat, row_matmat_plain, row_matvec,
         row_matvec_plain, row_rmatmat, row_rmatmat_plain, row_rmatvec,
         row_rmatvec_plain)
 
@@ -3349,9 +3660,15 @@ def form_kernels(P, V, variant, library, sweep=False):
             lib_diff = rel_err(lv @ v, got)
             check(lib_diff <= LIBRARY_RTOL, f"{label} vs library "
                   f"{lib_diff:.3e}")
-            run_k, run_p = partial(fn, rp, v, *args), partial(plain, rp, v,
-                                                              *args)
-            run_8 = partial(fn, rp8, v, *args8)
+            # K2 and K4: the gather kernel (the window kernel's own times
+            # are window_kernels')
+            gkw, gkw8 = ((gather_of(rp, v, scaled=kernel == "K4" and
+                                    sv is not None),
+                          gather_of(rp8, v, scaled=kernel == "K4"))
+                         if R > 1 else ({}, {}))
+            run_k, run_p = partial(fn, rp, v, *args, **gkw), partial(
+                plain, rp, v, *args)
+            run_8 = partial(fn, rp8, v, *args8, **gkw8)
             p1, k1, i1, i2, k2, p2 = (time_ms(run_p, 10), time_ms(run_k),
                                       time_ms(run_8), time_ms(run_8),
                                       time_ms(run_k), time_ms(run_p, 10))
@@ -3370,18 +3687,21 @@ def form_kernels(P, V, variant, library, sweep=False):
                 library_max_rel_diff=lib_diff, form_shape=list(rp.shape),
                 lanes=rp.lanes, fill=rp.fill, live=rp.live,
                 form_mb=rp.nbytes / 1e6, int8_form_mb=rp8.nbytes / 1e6,
-                index_bits=32 if rp.wide else 16,
+                index_bits=32 if rp.wide else 16, **gkw,
+                routed=routed_gather(rp, v, scaled=kernel == "K4" and
+                                     sv is not None) if R > 1 else None,
                 spills=None if regs is None else regs.get(
                     "K1r/K3r" if R == 1 else "K2r/K4r"))
             if sweep and R > 1:
-                variants = variants_for(v)
+                variants = variants_for(rp, v)
                 diff = max(float((got - fn(rp, v, *args, **kw)).abs().max())
                            for kw in variants.values())
                 check(diff == 0.0, f"{label}: a gather or block size "
                       f"changes the bits by {diff:.3e}")
-                gather = _gather_for(rp, v, scaled=kernel == "K4" and
-                                     sv is not None)
-                default = f"{gather}/{_threads_for(rp, gather)}"
+                gather = routed_gather(rp, v, scaled=kernel == "K4" and
+                                       sv is not None)
+                default = (f"{gather}/{WINDOW_THREADS}" if gather == "window"
+                           else f"{gather}/{_threads_for(rp, gather)}")
                 variant_ms = {name: time_ms(partial(fn, rp, v, *args, **kw))
                               for name, kw in variants.items()}
                 best = min(variant_ms, key=variant_ms.get)
@@ -3582,16 +3902,18 @@ def float_operators(P, dtype, job):
 def spills(dtype):
     """Registers and spills of the ``row_spmv.cu`` variants of one storage
     type (``"int4"``, ``"int8"``, ``"bfloat16"``, ``"float32"``), from the
-    build phase's ptxas report: ``{"K1r/K3r": [...], "K2r/K4r": [...]}``
-    (None when this run built nothing)."""
+    build phase's ptxas report: ``{"K1r/K3r": [...], "K2r/K4r": [...],
+    "K2r/K4r window": [...]}`` (None when this run built nothing)."""
     import re
 
     code = {"float32": "f", "bfloat16": "13__nv_bfloat16", "int8": "a"}
-    out = {"K1r/K3r": [], "K2r/K4r": []}
+    out = {"K1r/K3r": [], "K2r/K4r": [], "K2r/K4r window": []}
     for v in BUILD_VARIANTS.get("row_spmv", []):
         name = v["entry"]
         kernel = ("K1r/K3r" if "row_spmv_kernel" in name else
-                  "K2r/K4r" if "row_spmm_kernel" in name else None)
+                  "K2r/K4r" if "row_spmm_kernel" in name else
+                  "K2r/K4r window" if "row_spmm_window_kernel" in name
+                  else None)
         if kernel is None:
             continue
         t = name.split("kernelI", 1)[1]
@@ -3651,8 +3973,8 @@ def phase_variant_path(P, F, full):
     gate), ``lsqr`` (101 K1r, 101 K3r) and ``lsqr_batched`` (R=8; 101 K2r,
     101 K4r) in GKB_BANDS of the host ``lsqr``, gated at its minimum times
     GKB_BAND.  Each path's peak memory, and its walls taken in turns with
-    the int8 twin's.  Returns the launches of (K1r, K3r, K2r, K4r), each
-    from its path's run."""
+    the int8 twin's.  Returns the launches of (K1r, K3r, K2r, K4r, the
+    window kernel as K2r, as K4r), each from its path's run."""
     import torch
 
     n, dt = P.n, F.dtype
@@ -3680,12 +4002,14 @@ def phase_variant_path(P, F, full):
                            **in_turns(f"{label} single", {
                                "int8": lambda: solve(P),
                                dt: lambda: solve(F)})))
-    got = [launched[4], 0, 0, 0]
+    got = [launched[4], 0, 0, 0, 0, 0]
     if full:
         b8 = torch.as_tensor(noisy_sinograms(P, range(RHS)), device="cuda")
-        with PeakMemory(f"{label} serving R={RHS}"):
+        with PeakMemory(f"{label} serving R={RHS}",
+                        (F.A_op, F.B_op)):
             rb, lb = counted_batched(F, b8, True, 2 * MAXIT + 1,
                                      f"{label} serving R={RHS}")
+        lb_window = counted_batched.window[0]
         errb = rb.err_hist.cpu().numpy()
         minima = errb.min(axis=0)
         check(bool((minima <= SERVING_GATES[n]).all()), f"{label} serving: "
@@ -3721,9 +4045,11 @@ def phase_variant_path(P, F, full):
                                    maxit=MAXIT),
                 dt: lambda: fn(F.A_op, F.b, F.x_true, tol=0.0,
                                maxit=MAXIT)}))
-        with PeakMemory(f"{label} lsqr_batched R={RHS}"):
+        with PeakMemory(f"{label} lsqr_batched R={RHS}",
+                        (F.A_op, F.B_op)):
             rlb, llb = gkb_counted("lsqr_batched", F.A_op, b8, F.x_true,
                                    MAXIT, f"{label} lsqr_batched R={RHS}")
+        llb_window = gkb_counted.window[1]
         errlb = rlb.err_hist.cpu().numpy()
         check(float(errlb[:, 0].min()) <= lgate, f"{label} lsqr_batched "
               f"column 0: min-over-k rel err {errlb[:, 0].min():.4f} > gate "
@@ -3741,7 +4067,7 @@ def phase_variant_path(P, F, full):
                                     maxit=MAXIT),
                 dt: lambda: fnb(F.A_op, b8, F.x_true, tol=0.0,
                                 maxit=MAXIT)}))
-        got = [launched[4], ll[5], lb[6], llb[7]]
+        got = [launched[4], ll[5], lb[6], llb[7], lb_window, llb_window]
     out["memory"] = {k: v for k, v in MEMORY.items() if k.startswith(label)}
     say("variant_path", **out)
     return got
@@ -3754,7 +4080,8 @@ def phase_float_forms(P, jobs):
     gather and block size timed at R=8) and the paths
     (:func:`phase_variant_path`; n=64 all four, n=128 the single solve).
     Returns ``{dtype: (kernel records of K1, K3, K2, K4, launches of K1r,
-    K3r, K2r, K4r)}``."""
+    K3r, K2r, K4r and of the window kernel as K2r and K4r, the window
+    kernel's records (:func:`window_kernels`))}``."""
     import torch
 
     out = {}
@@ -3762,8 +4089,9 @@ def phase_float_forms(P, jobs):
         t0 = time.perf_counter()
         F = float_operators(P, dtype, jobs[dtype])
         recs = form_kernels(P, F, dtype, float_library, sweep=True)
+        wrecs = window_kernels(P, F, dtype, float_library)
         launches = phase_variant_path(P, F, full=P.n == 64)
-        out[dtype] = (recs, launches)
+        out[dtype] = (recs, launches, wrecs)
         say("float_forms_done", n=P.n, dtype=dtype,
             seconds=time.perf_counter() - t0)
         del F
@@ -4140,7 +4468,6 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
     import torch
 
     from hybrid_gmres_tpu_torch.ops.linear_operator import ProductOperator
-    from hybrid_gmres_tpu_torch.ops.spmv_cuda import _gather_for
     from hybrid_gmres_tpu_torch.parallel import (
         ComposedPanels, ab_gmres_rtp_sharded, ab_gmres_sharded_batched,
         ba_gmres_rtp_sharded, ba_gmres_sharded_batched,
@@ -4257,8 +4584,9 @@ def phase_sharded_solvers(P, mesh, A_p, BT_p, B_p, BT_op, host_ref, gkb_refs,
         # the window comes in the basis layout, K4 reads the scaled basis
         probe = b8.T.contiguous().T
         out["gathers"] = dict(
-            k2r_A=_gather_for(A_p.shards[0].fwd_rows, probe),
-            k4r_BT=_gather_for(BT_p.shards[0].adj_rows, probe, scaled=True))
+            k2r_A=routed_gather(A_p.shards[0].fwd_rows, probe),
+            k4r_BT=routed_gather(BT_p.shards[0].adj_rows, probe,
+                                 scaled=True))
         in_loop = batched_case("ba", b8, False)
         batched_case("ba", b8, True)
         batched_case("ba", b16, True)
@@ -4322,7 +4650,7 @@ def shard_view_checks(P, B4, R=8):
     import torch
 
     from hybrid_gmres_tpu_torch.ops.spmv_cuda import (
-        _gather_for, row_matmat_plain, row_matvec_plain, row_rmatmat_plain,
+        row_matmat_plain, row_matvec_plain, row_rmatmat_plain,
         row_rmatvec_plain)
     from hybrid_gmres_tpu_torch.parallel import shard_bucketed_panels
     from hybrid_gmres_tpu_torch.parallel.panels import (
@@ -4393,9 +4721,9 @@ def shard_view_checks(P, B4, R=8):
                             view, Ui[:, j].contiguous())))
                 Ys.append(Yi)
                 Z += scatter_window_to_full_mat(view, Zi)
-                gathers["k2r"].append(_gather_for(shard.fwd_rows, Xw))
-                gathers["k4r"].append(_gather_for(shard.adj_rows, Ui,
-                                                  scaled=True))
+                gathers["k2r"].append(routed_gather(shard.fwd_rows, Xw))
+                gathers["k4r"].append(routed_gather(shard.adj_rows, Ui,
+                                                    scaled=True))
                 shard_us["k2r"].append(time_ms(
                     lambda: local_matmat(view, Xw), reps=20) * 1e3)
                 shard_us["k4r"].append(time_ms(
@@ -4780,6 +5108,26 @@ def main():
     import torch
 
     phase_build()
+    if "--windows" in sys.argv[1:]:      # a short call: the window kernel
+        for n in (64, 128):
+            P = make_problem(n)
+            window_kernels(P, P, "int8", int8_library)
+            P4 = int4_operators(P)
+            window_kernels(P, P4, "int4", int4_library)
+            del P4
+            from hybrid_gmres_tpu_torch.problems.ct import ct_gpu_operators
+
+            for dt in FLOAT_DTYPES:
+                A_f, B_f = ct_gpu_operators(P.prob, dtype=dt)[:2]
+                window_kernels(P, SimpleNamespace(
+                    A_op=A_f, B_op=B_f, A_adj=None, B_adj=None), dt,
+                    float_library)
+                del A_f, B_f
+                torch.cuda.empty_cache()
+            del P
+            drop_libraries()
+        say("stopped", after="windows")
+        return
     if "--sharded" in sys.argv[1:]:      # a short call: the sharded phases
         for n in (64, 128):
             P = make_problem(n)
@@ -4815,44 +5163,51 @@ def main():
     fjobs_64 = float_results(builds)
     k1_64, k2_64, k3_64, k4_64, k1r_64, k3r_64, k2r_64, k4r_64 = \
         phase_ct_kernels(P)
+    wk_64 = window_kernels(P, P, "int8", int8_library)
     lmm_64, sweep_64 = lambda_mm_kernels(P)
     phase_small_kernels()
     if "--kernels" in sys.argv[1:]:      # a short call: builds and kernels
         P4 = int4_operators(P)
         int4_kernels(P, P4)
+        window_kernels(P, P4, "int4", int4_library)
         lambda_mm_kernels(P4, "int4")
         int4_wide_path(P4)
         del P, P4
-        torch.cuda.empty_cache()
+        drop_libraries()
         P = make_problem(128, adjoint=True)
         phase_ct_kernels(P)
+        window_kernels(P, P, "int8", int8_library)
         lambda_mm_kernels(P)
         P4 = int4_operators(P)
         int4_kernels(P, P4)
+        window_kernels(P, P4, "int4", int4_library)
         lambda_mm_kernels(P4, "int4")
         say("stopped", after="kernels")
         return
     release_plain_caches(P)
+    drop_libraries()
     phase_small_reference()
-    with PeakMemory("n=64 main path"):
+    with PeakMemory("n=64 main path", (P.A_op, P.B_op)):
         main_launches, its, ref0 = phase_main_path(P)
-    with PeakMemory("n=64 serving"):
+    with PeakMemory("n=64 serving", (P.A_op, P.B_op)):
         serving_launches = phase_serving(P, its, ref0, full=True)
-    with PeakMemory("n=64 GKB"):
+    with PeakMemory("n=64 GKB", (P.A_op, P.B_op)):
         gkb = phase_gkb_path(P, GKB_SINGLE, gcv=True)
         gkb_b = phase_gkb_serving(P, GKB_BATCHED,
                                   {k: v[2] for k, v in gkb.items()},
                                   full=True)
     lsqr_launches = gkb["lsqr"][0]
     lsqr_b_launches = gkb_b["lsqr_batched"]
-    with PeakMemory("n=64 lambda path"):
+    with PeakMemory("n=64 lambda path", (P.A_op, P.B_op)):
         rtp_64 = phase_lambda_path(P, full=True)
     t0 = time.perf_counter()
     P4 = int4_operators(P, refs=True)
     k1i4_64, k3i4_64, k2i4_64, k4i4_64 = int4_kernels(P, P4)
+    wk4_64 = window_kernels(P, P4, "int4", int4_library)
     lmm4_64, sweep4_64 = lambda_mm_kernels(P4, "int4")
     wide4_launches = int4_wide_path(P4)
     release_plain_caches(P4)
+    drop_libraries()
     int4_launches = phase_variant_path(P, P4, full=True)
     del P4
     say("int4_done", n=64, seconds=time.perf_counter() - t0)
@@ -4870,24 +5225,29 @@ def main():
     fjobs_128 = float_results(builds)
     k1_128, k2_128, k3_128, k4_128, k1r_128, k3r_128, k2r_128, k4r_128 = \
         phase_ct_kernels(P)
+    wk_128 = window_kernels(P, P, "int8", int8_library)
     lmm_128, sweep_128 = lambda_mm_kernels(P)
     P.A_adj = P.B_adj = None     # the n=128 solves need forward panels
     release_plain_caches(P)
-    with PeakMemory("n=128 main path"):
+    drop_libraries()
+    with PeakMemory("n=128 main path", (P.A_op, P.B_op)):
         _, its, ref0 = phase_main_path(P)
-    with PeakMemory("n=128 serving"):
-        phase_serving(P, its, ref0, full=False)
-    with PeakMemory("n=128 GKB"):
+    with PeakMemory("n=128 serving", (P.A_op, P.B_op)):
+        serving_128 = phase_serving(P, its, ref0, full=False)
+    with PeakMemory("n=128 GKB", (P.A_op, P.B_op)):
         gkb = phase_gkb_path(P, ("lsqr",))
-        phase_gkb_serving(P, ("lsqr_batched",),
-                          {k: v[2] for k, v in gkb.items()}, full=False)
-    with PeakMemory("n=128 lambda path"):
+        lsqr_b_128 = phase_gkb_serving(
+            P, ("lsqr_batched",), {k: v[2] for k, v in gkb.items()},
+            full=False)["lsqr_batched"]
+    with PeakMemory("n=128 lambda path", (P.A_op, P.B_op)):
         phase_lambda_path(P, full=False)
     t0 = time.perf_counter()
     P4 = int4_operators(P)
     k1i4_128, k3i4_128, k2i4_128, k4i4_128 = int4_kernels(P, P4)
+    wk4_128 = window_kernels(P, P4, "int4", int4_library)
     lmm4_128, sweep4_128 = lambda_mm_kernels(P4, "int4")
     release_plain_caches(P4)
+    drop_libraries()
     say("int4_done", n=128, seconds=time.perf_counter() - t0)
     float_128 = phase_float_forms(P, fjobs_128)
     # phase sharded_2d's tiles, packed by worker processes from here on
@@ -4916,20 +5276,102 @@ def main():
     # the bfloat16 and float32 variants, each with the launches of its n=64
     # path as the int4 ones: the single solve (K1), lsqr (K3), the serving
     # batch (K2), lsqr_batched (K4)
+    # K2r and K4r run two kernels: the gathers (row_spmm_kernel) and the
+    # window kernel (row_spmm_window), each with its own entry, launches and
+    # times.  Their launches come from the serving scans (K2) and the
+    # lsqr_batched solves (K4), R=8, of each storage type: at n=64 and, for
+    # int8, at n=128 too (``runs``: {run: (gather, window launches)}, from
+    # the counts' K2r or K4r less the window kernel's).  ``path``: the
+    # records of the forms those runs multiply (n=64 first); a kernel's ms
+    # etc. are those of the forms it ran on (the gathers' from
+    # row_mm_kernels/form_kernels, the window kernel's from window_kernels),
+    # at n=64 where it ran there; a kernel with no launch in the runs is
+    # superseded by the other
+    sharded_k2r = ("the sharded runs' K2r (K4r) launches, on either "
+                   "kernel as takes_windows routes each shard or tile form")
+
+    def split(runs, k, w):
+        return {name: (c[k] - c[w], c[w]) for name, c in runs.items()}
+
+    def mm_record(name, replaces, runs, path, other, window, mode,
+                  **extra):
+        launches = sum(r[window] for r in runs.values())
+        ran = [r for r in path if (r["routed"] == "window") == window]
+        if launches:
+            at_64 = [r for r in ran if r["panel"].startswith("n=64")]
+            on = at_64 or ran
+        else:
+            on = [r for r in path if r["panel"].startswith("n=64")]
+        return kernel_record(
+            name, csrc + "row_spmv.cu", pallas + replaces, launches, on,
+            [r for r in path + other if r not in on],
+            superseded_by=None if launches else (
+                f"row_spmm_window {mode}" if not window else
+                f"{'row_matmat' if replaces == ':220' else 'row_rmatmat'} "
+                f"{mode}".strip()),
+            launches_by_run={k: v[window] for k, v in runs.items()},
+            **extra)
+
+    def pair(mode, runs2, runs4, g2, g4, w2, w4):
+        """(gather K2, gather K4, window K2, window K4) entries: ``g2``,
+        ``g4`` the gathers' records (path forms, others), ``w2``, ``w4`` the
+        window kernel's."""
+        suffix = f" {mode}" if mode else ""
+        return ([mm_record(f"row_matmat{suffix}", ":220", runs2, *g2, False,
+                           f"{mode} (K2)".strip()),
+                 mm_record(f"row_rmatmat{suffix}", ":279", runs4, *g4,
+                           False, f"{mode} (K4)".strip())],
+                [mm_record(f"row_spmm_window{suffix} (K2)", ":220", runs2,
+                           *w2, True, mode, gather="window",
+                           rule="takes_windows"),
+                 mm_record(f"row_spmm_window{suffix} (K4)", ":279", runs4,
+                           *w4, True, mode, gather="window",
+                           rule="takes_windows")])
+
+    def window_recs(w64, w128, k4):
+        # K2: A's and B's forward forms (serving); K4: A's transposed form
+        # (lsqr_batched)
+        if k4:
+            return w64[:1] + w128[:1], w64[1:] + w128[1:]
+        return w64 + w128, []
+
+    int8_gathers, windows = pair(
+        "", split({"n=64 serving R=8 deferred": serving_launches,
+                   "n=128 serving R=8 deferred": serving_128}, 6, 9),
+        split({"n=64 lsqr_batched R=8": lsqr_b_launches,
+               "n=128 lsqr_batched R=8": lsqr_b_128}, 7, 10),
+        (k2r_64 + k2r_128, []), (k4r_64[:1] + k4r_128[:1],
+                                  k4r_64[1:] + k4r_128[1:]),
+        window_recs(wk_64["K2"], wk_128["K2"], False),
+        window_recs(wk_64["K4"], wk_128["K4"], True))
+    int4_gathers, int4_windows = pair(
+        "int4", split({"n=64 int4 serving R=8 deferred": int4_launches},
+                      2, 4),
+        split({"n=64 int4 lsqr_batched R=8": int4_launches}, 3, 5),
+        (k2i4_64 + k2i4_128, []), (k4i4_64[:1] + k4i4_128[:1],
+                                    k4i4_64[1:] + k4i4_128[1:]),
+        window_recs(wk4_64["K2"], wk4_128["K2"], False),
+        window_recs(wk4_64["K4"], wk4_128["K4"], True))
+    windows += int4_windows
     floats = []
     for dt in FLOAT_DTYPES:
-        (k1, k3, k2, k4), (l1, l3, l2, l4) = float_64[dt]
-        (m1, m3, m2, m4), _ = float_128[dt]
+        (k1, k3, k2, k4), (l1, l3, l2, l4, w2, w4), wk = float_64[dt]
+        (m1, m3, m2, m4), _, wk128 = float_128[dt]
+        got = (l1, l3, l2, l4, w2, w4)
+        gathers_dt, windows_dt = pair(
+            dt, split({f"n=64 {dt} serving R=8 deferred": got}, 2, 4),
+            split({f"n=64 {dt} lsqr_batched R=8": got}, 3, 5),
+            (k2 + m2, []), (k4[:1] + m4[:1], k4[1:] + m4[1:]),
+            window_recs(wk["K2"], wk128["K2"], False),
+            window_recs(wk["K4"], wk128["K4"], True))
+        windows += windows_dt
         floats += [
             kernel_record(f"row_matvec {dt}", csrc + "row_spmv.cu",
                           pallas + ":46", l1, k1, m1),
             kernel_record(f"row_rmatvec {dt}", csrc + "row_spmv.cu",
                           pallas + ":101", l3, k3[:1], k3[1:] + m3),
-            kernel_record(f"row_matmat {dt}", csrc + "row_spmv.cu",
-                          pallas + ":220", l2, k2, m2),
-            kernel_record(f"row_rmatmat {dt}", csrc + "row_spmv.cu",
-                          pallas + ":279", l4, k4[:1], k4[1:] + m4)]
-    print(json.dumps({"kernels": [
+            *gathers_dt]
+    kernels = [
         kernel_record("row_matvec", csrc + "row_spmv.cu", pallas + ":46",
                       main_launches[4], k1r_64, k1r_128,
                       entry_launches=entry_launches[4],
@@ -4937,28 +5379,24 @@ def main():
                       sharded_2d_launches=ba_2d[4],
                       sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
                       + "tile_matvec"),
-        kernel_record("row_matmat", csrc + "row_spmv.cu", pallas + ":220",
-                      serving_launches[6], k2r_64, k2r_128,
-                      sharded_launches=batched_128[6],
-                      sharded_path="ba_gmres_sharded_batched n=128 R=8 "
-                      "in-loop (parallel/panels.py:local_matmat)",
-                      sharded_2d_launches=batched_2d[6],
-                      sharded_2d_path="ba_gmres_sharded_batched_2d R=8 "
-                      "deferred " + two_d + "tile_matmat"),
+        dict(int8_gathers[0], sharded_launches=batched_128[6],
+             sharded_path="ba_gmres_sharded_batched n=128 R=8 in-loop "
+             "(parallel/panels.py:local_matmat)",
+             sharded_2d_launches=batched_2d[6],
+             sharded_2d_path="ba_gmres_sharded_batched_2d R=8 deferred "
+             + two_d + "tile_matmat", sharded_kernels=sharded_k2r),
         kernel_record("row_rmatvec", csrc + "row_spmv.cu", pallas + ":101",
                       lsqr_launches[5], k3r_64[:1], k3r_64[1:] + k3r_128,
                       sharded_launches=sharded_launches_64[5],
                       sharded_2d_launches=ba_2d[5],
                       sharded_2d_path="ba_gmres_sharded_pallas_2d " + two_d
                       + "tile_rmatvec"),
-        kernel_record("row_rmatmat", csrc + "row_spmv.cu", pallas + ":279",
-                      lsqr_b_launches[7], k4r_64[:1], k4r_64[1:] + k4r_128,
-                      sharded_launches=batched_128[7],
-                      sharded_path="ba_gmres_sharded_batched n=128 R=8 "
-                      "in-loop (parallel/panels.py:local_rmatmat_window)",
-                      sharded_2d_launches=batched_2d[7],
-                      sharded_2d_path="ba_gmres_sharded_batched_2d R=8 "
-                      "deferred " + two_d + "tile_rmatmat"),
+        dict(int8_gathers[1], sharded_launches=batched_128[7],
+             sharded_path="ba_gmres_sharded_batched n=128 R=8 in-loop "
+             "(parallel/panels.py:local_rmatmat_window)",
+             sharded_2d_launches=batched_2d[7],
+             sharded_2d_path="ba_gmres_sharded_batched_2d R=8 deferred "
+             + two_d + "tile_rmatmat", sharded_kernels=sharded_k2r),
         # K2w: the launches of the n=64 AB-RTP solve (A Q at R = maxit a
         # step); ms etc. of one such product (n=64 A, R=100); its bound the
         # tensor cores' (the float32 yardstick beside it)
@@ -4984,12 +5422,9 @@ def main():
         kernel_record("row_rmatvec int4", csrc + "row_spmv.cu",
                       pallas + ":101", int4_launches[1], k3i4_64[:1],
                       k3i4_64[1:] + k3i4_128),
-        kernel_record("row_matmat int4", csrc + "row_spmv.cu",
-                      pallas + ":220", int4_launches[2], k2i4_64, k2i4_128),
-        kernel_record("row_rmatmat int4", csrc + "row_spmv.cu",
-                      pallas + ":279", int4_launches[3], k4i4_64[:1],
-                      k4i4_64[1:] + k4i4_128),
+        *int4_gathers,
         *floats,
+        *windows,
         kernel_record("bucket_matvec", csrc + "bucket_spmv.cu",
                       pallas + ":46", main_launches[0], k1_64, k1_128,
                       superseded_by="row_matvec"),
@@ -5001,7 +5436,11 @@ def main():
                       k3_64[1:] + k3_128, superseded_by="row_rmatvec"),
         kernel_record("bucket_rmatmat", csrc + "bucket_rspmv.cu",
                       pallas + ":279", lsqr_b_launches[3], k4_64[:1],
-                      k4_64[1:] + k4_128, superseded_by="row_rmatmat")]}))
+                      k4_64[1:] + k4_128, superseded_by="row_rmatmat")]
+    # every kernel on a path was launched in that path's run
+    idle = [k["name"] for k in kernels if k["on_path"] and not k["launches"]]
+    check(not idle, f"kernels on a path with no launch in its run: {idle}")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -555,6 +555,59 @@ __device__ __forceinline__ void halve(float acc[RT], int lane, int o,
   if (up) base += H / 2;
 }
 
+// The end of a row's product: the lanes' RT sums of a packed row (valid: a
+// row of the block's pass) reduced by the xor tree of row_spmv_kernel,
+// column by column, as a butterfly (afterwards a lane holds `held` columns
+// from `base` on), then scaled and written to Y's row i (the original row);
+// a row over several warps adds their sums in warp order (`part`, one row of
+// RT floats a warp).  Every thread of the block calls it (its barriers).
+__device__ __forceinline__ void write_row(float acc[RT], float (*part)[RT],
+                                          int lanes, bool valid, int i,
+                                          const float* __restrict__ out_scale,
+                                          float* __restrict__ Y, int64_t sy0,
+                                          int64_t sy1, int w) {
+  const int tid = threadIdx.x;
+  const int l = tid % lanes;
+  const int warp_lanes = lanes < 32 ? lanes : 32;
+  // lanes that hold copies of the same columns after the butterfly
+  const int dup_mask = (warp_lanes >= 8 ? warp_lanes / 8 : 1) - 1;
+  int o = warp_lanes >> 1;
+  int base = 0;
+  int held = RT;
+  if (o > 0) { halve<8>(acc, tid, o, base); held = 4; o >>= 1; }
+  if (o > 0) { halve<4>(acc, tid, o, base); held = 2; o >>= 1; }
+  if (o > 0) { halve<2>(acc, tid, o, base); held = 1; o >>= 1; }
+  for (; o > 0; o >>= 1) acc[0] += __shfl_xor_sync(FULL, acc[0], o);
+  if (lanes <= 32) {
+    if (valid && (l & dup_mask) == 0) {
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        if (t < held && base + t < w) {
+          Y[i * sy0 + (base + t) * sy1] =
+              out_scale != nullptr ? out_scale[i] * acc[t] : acc[t];
+        }
+      }
+    }
+  } else {  // a row over several warps: their sums in warp order
+    if ((tid & dup_mask) == 0) {
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        if (t < held) part[tid >> 5][base + t] = acc[t];
+      }
+    }
+    __syncthreads();
+    if (l < w && valid) {   // the row's first warp, a column a lane
+      float total = part[tid >> 5][l];
+      for (int ww = 1; ww < lanes / 32; ++ww) {
+        total += part[(tid >> 5) + ww][l];
+      }
+      Y[i * sy0 + l * sy1] =
+          out_scale != nullptr ? out_scale[i] * total : total;
+    }
+    __syncthreads();
+  }
+}
+
 // NT threads per block, 1024 / NT blocks per multiprocessor: at most 64
 // registers a thread either way.  K4: the strided gather multiplies in_scale
 // in (the packed gather's K4 runs as K2 on the scaled copy).
@@ -577,9 +630,6 @@ __global__ void __launch_bounds__(NT, 1024 / NT)
   const int rows_per_block = NT / lanes;
   const int g = tid / lanes;
   const int l = tid % lanes;
-  const int warp_lanes = lanes < 32 ? lanes : 32;
-  // lanes that hold copies of the same columns after the butterfly
-  const int dup_mask = (warp_lanes >= 8 ? warp_lanes / 8 : 1) - 1;
   const int grid = static_cast<int>(gridDim.x);
   const int bx = static_cast<int>(blockIdx.x);
   const int chunk = (row_blocks + grid - 1) / grid;
@@ -606,45 +656,8 @@ __global__ void __launch_bounds__(NT, 1024 / NT)
         }
       }
     }
-    // the xor tree of row_spmv_kernel, column by column, as a butterfly:
-    // afterwards a lane holds `held` columns from `base` on
-    int o = warp_lanes >> 1;
-    int base = 0;
-    int held = RT;
-    if (o > 0) { halve<8>(acc, tid, o, base); held = 4; o >>= 1; }
-    if (o > 0) { halve<4>(acc, tid, o, base); held = 2; o >>= 1; }
-    if (o > 0) { halve<2>(acc, tid, o, base); held = 1; o >>= 1; }
-    for (; o > 0; o >>= 1) acc[0] += __shfl_xor_sync(FULL, acc[0], o);
-    if (lanes <= 32) {
-      if (r < rows && (l & dup_mask) == 0) {
-        const int i = row_map[r];
-#pragma unroll
-        for (int t = 0; t < RT; ++t) {
-          if (t < held && base + t < w) {
-            Y[i * sy0 + (base + t) * sy1] =
-                out_scale != nullptr ? out_scale[i] * acc[t] : acc[t];
-          }
-        }
-      }
-    } else {  // a row over several warps: their sums in warp order
-      if ((tid & dup_mask) == 0) {
-#pragma unroll
-        for (int t = 0; t < RT; ++t) {
-          if (t < held) part[tid >> 5][base + t] = acc[t];
-        }
-      }
-      __syncthreads();
-      if (l < w && r < rows) {   // the row's first warp, a column a lane
-        float total = part[tid >> 5][l];
-        for (int ww = 1; ww < lanes / 32; ++ww) {
-          total += part[(tid >> 5) + ww][l];
-        }
-        const int i = row_map[r];
-        Y[i * sy0 + l * sy1] =
-            out_scale != nullptr ? out_scale[i] * total : total;
-      }
-      __syncthreads();
-    }
+    write_row(acc, part, lanes, r < rows, r < rows ? row_map[r] : 0,
+              out_scale, Y, sy0, sy1, w);
   }
 }
 
@@ -729,6 +742,384 @@ cudaError_t launch_mm_index(int wide, int k4, int gather, int threads,
             : launch_gather<T, uint16_t, false>(gather, threads, a);
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K4 with each thread block's window of X staged in shared memory
+// (row_spmm_window): the same products, sums and bits as row_spmm_kernel,
+// another way of reading X.  row_spmm_kernel gathers, for every stored entry,
+// the RT values of its column of the tile from L1/L2 (one 32-byte sector, or
+// eight 4-byte loads): at CT n=128 about 810 MB through L2 for A's 78 MB
+// form.  Neighbouring rows read neighbouring columns (rays and pixels in
+// Morton order), so the rows one block holds, taken in that order, read each
+// of their distinct columns many times (15 on A's rows at n=128, 4-6 on the
+// pixel rows at n=64, under 4 on those at n=128).
+//
+// Format: the window form (ops/sparse.py:RowWindows) beside the row form.
+// The packed rows are placed in the order of the rows they hold (win_rows:
+// the packed row at each place; the packed order sorts rows by length,
+// which scatters neighbours).  Window w holds the rows at places win_row[w]
+// .. win_row[w + 1] - 1, at most WNT / lanes of them, and reads the columns
+// wcols[win_off[w] .. win_off[w + 1] - 1] (at most WIN_COLS); each stored
+// slot holds, in place of its column, its 16-bit position in its window's
+// list (local).  Values, vec_off, row_map and lanes are the row form's own.
+//
+// What bounds it: the bytes are the form (values + 16-bit local indices,
+// the lists) from HBM once a tile and the staged columns of X from L2
+// (about 54 MB on A at n=128, a fifteenth of the gathers), but the time
+// follows the shared-memory reads (two 16-byte loads an entry, whose banks
+// the random columns of a quarter-warp share), the copies and the barrier
+// of each window: 116 against a byte bound of 27 us on A at n=128
+// (chip_smoke.py's window_kernels, PERF.md).  A window is a small piece of
+// work (each lane about two vectors), so the design keeps every load of a
+// window off the path of the one before:
+//   * persistent blocks of WNT = 1024 threads, one a multiprocessor, walking
+//     windows blockIdx.x, + gridDim.x, ...; two buffers of staged columns,
+//     the next window's copied while this one's are read;
+//   * a window's columns copied with cp.async, column i of the list by
+//     thread i mod WNT: X[c, 0:4] into lo[i], X[c, 4:8] into hi[i]; from a
+//     row-major X on 16-byte rows in two 16-byte pieces (PACKED), else in
+//     eight 4-byte pieces through X's strides (consecutive threads on
+//     consecutive columns of a plane); nothing past the tile's width (its
+//     sums are never written).  The list of the window after next is
+//     loaded into registers while this one is worked on, so the copies are
+//     issued without waiting on it;
+//   * K4: each thread multiplies the columns it copied by in_scale (loaded
+//     with the copies) once they have landed, x * s, the float32 product K3
+//     forms, before the barrier that hands the window to the lanes: no copy
+//     of U, no scale read in the loop;
+//   * each lane streams its vectors across windows: the next window's row,
+//     bounds and original row are loaded when a window starts, its first
+//     vector while this window's last one is multiplied;
+//   * lanes run row_spmm_kernel's loop on the local indices, two float4
+//     loads from shared memory an entry (one for a tile of at most 4
+//     columns).
+// Bits: each lane adds its vectors in ascending order, slots in order, one
+// fmaf per entry and column, then write_row: column j is K1's (K3's) on
+// column j bit for bit, in both staging modes and at every R.
+constexpr int WNT = 1024;
+constexpr int WIN_COLS = 3584;                  // ops/sparse.py
+constexpr int WK = (WIN_COLS + WNT - 1) / WNT;  // list entries a thread
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 bytes (through L2 only) or of 4.  The barrier after
+// copy_wait orders the copies against the lanes' reads.
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A window's list, the part this thread copies: columns threadIdx.x + k WNT
+// of the list (k < WK), n columns in all.
+struct ListPart {
+  int col[WK];
+  int n;
+};
+
+__device__ __forceinline__ ListPart list_part(const int* __restrict__ wcols,
+                                              const int* __restrict__ win_off,
+                                              int win) {
+  ListPart out;
+  const int off = win_off[win];
+  out.n = win_off[win + 1] - off;
+#pragma unroll
+  for (int k = 0; k < WK; ++k) {
+    const int i = threadIdx.x + k * WNT;
+    out.col[k] = i < out.n ? __ldg(wcols + off + i) : 0;
+  }
+  return out;
+}
+
+// Copy this thread's columns of the tile (width w) into (lo, hi).
+template <bool PACKED>
+__device__ __forceinline__ void stage(const float* __restrict__ X, int64_t sx0,
+                                      int64_t sx1, const ListPart& part,
+                                      int w, float4* lo, float4* hi) {
+#pragma unroll
+  for (int k = 0; k < WK; ++k) {
+    const int i = threadIdx.x + k * WNT;
+    if (i < part.n) {
+      const float* src = X + part.col[k] * sx0;
+      if (PACKED) {
+        copy16(lo + i, src);
+        if (w > 4) copy16(hi + i, src + 4);
+      } else {
+#pragma unroll
+        for (int t = 0; t < RT; ++t) {
+          if (t < w) {
+            copy4(reinterpret_cast<float*>(t < 4 ? lo + i : hi + i) + (t & 3),
+                  src + t * sx1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// in_scale of this thread's columns (K4).
+__device__ __forceinline__ void load_scales(const float* __restrict__ in_scale,
+                                            const ListPart& part,
+                                            float s[WK]) {
+#pragma unroll
+  for (int k = 0; k < WK; ++k) {
+    s[k] = threadIdx.x + k * WNT < part.n ? __ldg(in_scale + part.col[k])
+                                          : 0.0f;
+  }
+}
+
+// This thread's staged columns times their in_scale, once they landed.
+__device__ __forceinline__ void scale_staged(const float s[WK], int n,
+                                             float4* lo, float4* hi) {
+#pragma unroll
+  for (int k = 0; k < WK; ++k) {
+    const int i = threadIdx.x + k * WNT;
+    if (i < n) {
+      float4& a = lo[i];
+      float4& b = hi[i];
+      a.x = a.x * s[k]; a.y = a.y * s[k]; a.z = a.z * s[k]; a.w = a.w * s[k];
+      b.x = b.x * s[k]; b.y = b.y * s[k]; b.z = b.z * s[k]; b.w = b.w * s[k];
+    }
+  }
+}
+
+// A lane's place in the window it works on next: its row's vectors k ..
+// end - 1 (stride lanes) when `valid`, and the row's original row.
+struct LaneRow {
+  int k, end, orow;
+  bool valid;
+};
+
+__device__ __forceinline__ LaneRow lane_row(const int* __restrict__ win_row,
+                                            const int* __restrict__ win_rows,
+                                            const int* __restrict__ vec_off,
+                                            const int* __restrict__ row_map,
+                                            int win, int g, int l) {
+  LaneRow out{0, 0, 0, false};
+  const int p = win_row[win] + g;
+  if (p < win_row[win + 1]) {
+    const int r = win_rows[p];
+    out = LaneRow{vec_off[r] + l, vec_off[r + 1], row_map[r], true};
+  }
+  return out;
+}
+
+// The staged columns: two buffers of [lo, hi][max_cols] float4.
+template <typename T, bool K4, bool PACKED>
+__global__ void __launch_bounds__(WNT, 1)
+    row_spmm_window_kernel(const T* __restrict__ vals,
+                           const uint16_t* __restrict__ local,
+                           const int* __restrict__ vec_off,
+                           const int* __restrict__ row_map,
+                           const int* __restrict__ wcols,
+                           const int* __restrict__ win_off,
+                           const int* __restrict__ win_row,
+                           const int* __restrict__ win_rows, int windows,
+                           int max_cols, const float* __restrict__ X,
+                           int64_t sx0, int64_t sx1,
+                           const float* __restrict__ in_scale,
+                           const float* __restrict__ out_scale,
+                           float* __restrict__ Y, int64_t sy0, int64_t sy1,
+                           int R, int lanes) {
+  extern __shared__ float4 staged[];
+  __shared__ float part[WNT / 32][RT];
+  const int c0 = static_cast<int>(blockIdx.y) * RT;
+  const int w = min(RT, R - c0);
+  X += c0 * sx1;
+  Y += c0 * sy1;
+  const int g = threadIdx.x / lanes;
+  const int l = threadIdx.x % lanes;
+  const int step = static_cast<int>(gridDim.x);
+  int win = static_cast<int>(blockIdx.x);
+  if (win >= windows) return;
+  // the first window staged; the list of the second loaded
+  ListPart list = list_part(wcols, win_off, win);
+  float scale[WK], next_scale[WK];
+  if (K4) load_scales(in_scale, list, scale);
+  stage<PACKED>(X, sx0, sx1, list, w, staged, staged + max_cols);
+  copy_commit();
+  int n = list.n;
+  if (win + step < windows) list = list_part(wcols, win_off, win + step);
+  LaneRow cur = lane_row(win_row, win_rows, vec_off, row_map, win, g, l);
+  RawVals<T> a;
+  RawCols<uint16_t> c;
+  if (cur.valid && cur.k < cur.end) {
+    a.load(vals + static_cast<int64_t>(cur.k) * RawVals<T>::kPer);
+    c.load(local + static_cast<int64_t>(cur.k) * V);
+  }
+  for (int buf = 0; win < windows; win += step, buf ^= 1) {
+    float4* lo = staged + 2 * buf * max_cols;
+    float4* hi = lo + max_cols;
+    copy_wait();   // this thread's columns of the window
+    if (K4) scale_staged(scale, n, lo, hi);
+    // every column landed (and scaled); every lane done with the other
+    // buffer
+    __syncthreads();
+    const int next = win + step;
+    if (next < windows) {
+      float4* nlo = staged + 2 * (buf ^ 1) * max_cols;
+      if (K4) load_scales(in_scale, list, next_scale);
+      stage<PACKED>(X, sx0, sx1, list, w, nlo, nlo + max_cols);
+      n = list.n;
+      if (next + step < windows) {
+        list = list_part(wcols, win_off, next + step);
+      }
+    }
+    copy_commit();
+    const LaneRow nxt = next < windows
+                            ? lane_row(win_row, win_rows, vec_off, row_map,
+                                       next, g, l)
+                            : LaneRow{0, 0, 0, false};
+    float acc[RT];
+#pragma unroll
+    for (int t = 0; t < RT; ++t) acc[t] = 0.0f;
+    if (cur.valid && cur.k < cur.end) {
+      int k = cur.k;
+      while (true) {
+        // the next vector of the stream: this row's, or the next window's
+        // first; loaded before this one's products
+        const int kn = k + lanes < cur.end ? k + lanes
+                       : nxt.valid && nxt.k < nxt.end ? nxt.k : -1;
+        RawVals<T> an;
+        RawCols<uint16_t> cn;
+        if (kn >= 0) {
+          an.load(vals + static_cast<int64_t>(kn) * RawVals<T>::kPer);
+          cn.load(local + static_cast<int64_t>(kn) * V);
+        }
+        if (w > 4) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const int i = c.get(j);
+            const float4 xl = lo[i];
+            const float4 xh = hi[i];
+            const float aj = a.get(j);
+            acc[0] = fmaf(aj, xl.x, acc[0]);
+            acc[1] = fmaf(aj, xl.y, acc[1]);
+            acc[2] = fmaf(aj, xl.z, acc[2]);
+            acc[3] = fmaf(aj, xl.w, acc[3]);
+            acc[4] = fmaf(aj, xh.x, acc[4]);
+            acc[5] = fmaf(aj, xh.y, acc[5]);
+            acc[6] = fmaf(aj, xh.z, acc[6]);
+            acc[7] = fmaf(aj, xh.w, acc[7]);
+          }
+        } else {   // a tile of at most 4 columns: hi is not read
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const float4 xl = lo[c.get(j)];
+            const float aj = a.get(j);
+            acc[0] = fmaf(aj, xl.x, acc[0]);
+            acc[1] = fmaf(aj, xl.y, acc[1]);
+            acc[2] = fmaf(aj, xl.z, acc[2]);
+            acc[3] = fmaf(aj, xl.w, acc[3]);
+          }
+        }
+        a = an;
+        c = cn;
+        if (k + lanes >= cur.end) break;
+        k += lanes;
+      }
+    } else if (nxt.valid && nxt.k < nxt.end) {
+      a.load(vals + static_cast<int64_t>(nxt.k) * RawVals<T>::kPer);
+      c.load(local + static_cast<int64_t>(nxt.k) * V);
+    }
+    write_row(acc, part, lanes, cur.valid, cur.orow, out_scale, Y, sy0, sy1,
+              w);
+    cur = nxt;
+    if (K4) {
+#pragma unroll
+      for (int k = 0; k < WK; ++k) scale[k] = next_scale[k];
+    }
+  }
+}
+
+struct WinArgs {
+  const void* vals;
+  const uint16_t* local;
+  const int* vec_off;
+  const int* row_map;
+  const int* wcols;
+  const int* win_off;
+  const int* win_row;
+  const int* win_rows;
+  int windows, max_cols;
+  const float* X;
+  int64_t sx0, sx1;
+  const float* in_scale;
+  const float* out_scale;
+  float* Y;
+  int64_t sy0, sy1;
+  int R, lanes;
+  cudaStream_t stream;
+};
+
+template <typename T, bool K4, bool PACKED>
+cudaError_t launch_window(const WinArgs& a) {
+  if (a.lanes < 1 || a.lanes > MAX_LANES || (a.lanes & (a.lanes - 1))) {
+    return cudaErrorInvalidValue;
+  }
+  if (PACKED && (a.sx1 != 1 || a.sx0 % 4 ||
+                 reinterpret_cast<uintptr_t>(a.X) % 16)) {
+    return cudaErrorInvalidValue;
+  }
+  if (K4 != (a.in_scale != nullptr)) return cudaErrorInvalidValue;
+  const int tiles = (a.R + RT - 1) / RT;
+  if (tiles > 65535 || a.max_cols < 0 || a.max_cols > WIN_COLS ||
+      a.windows < 1) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = row_spmm_window_kernel<T, K4, PACKED>;
+  const size_t smem = static_cast<size_t>(4) * WIN_COLS * sizeof(float4);
+  // the multiprocessors, and the shared memory of the longest list allowed,
+  // set once per instantiation
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0, count = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    sms = count;
+  }
+  // one block a multiprocessor, the tiles side by side
+  const int per_tile = sms / tiles > 0 ? sms / tiles : 1;
+  const dim3 grid(a.windows < per_tile ? a.windows : per_tile, tiles);
+  kernel<<<grid, WNT, static_cast<size_t>(4) * a.max_cols * sizeof(float4),
+           a.stream>>>(static_cast<const T*>(a.vals), a.local, a.vec_off,
+                       a.row_map, a.wcols, a.win_off, a.win_row, a.win_rows,
+                       a.windows, a.max_cols, a.X, a.sx0, a.sx1, a.in_scale,
+                       a.out_scale, a.Y, a.sy0, a.sy1, a.R, a.lanes);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_window_modes(int k4, int packed, const WinArgs& a) {
+  if (k4) {
+    return packed ? launch_window<T, true, true>(a)
+                  : launch_window<T, true, false>(a);
+  }
+  return packed ? launch_window<T, false, true>(a)
+                : launch_window<T, false, false>(a);
+}
+
 }  // namespace
 
 // C entry point of K2/K4, loaded with ctypes.  dtype and wide as row_spmv;
@@ -778,6 +1169,68 @@ extern "C" int row_spmm(int dtype, int wide, int k4, int gather, int threads,
       break;
     case 3:
       err = launch_mm_index<Nib4>(wide, k4, gather, threads, a);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// C entry point of K2/K4 on the window form, loaded with ctypes.  dtype as
+// row_spmv; k4: 1 for the transposed product with its in_scale (multiplied
+// into the staged columns); packed: 1 to stage a row-major X on 16-byte rows
+// (readable up to R rounded up to a multiple of 4) in 16-byte pieces, 0
+// through its strides.  local (16-bit), wcols, win_off (windows + 1),
+// win_row (windows + 1) and win_rows (rows) are the window form of the row
+// form (vals, vec_off, row_map, lanes) for blocks of 1024 threads; max_cols
+// its longest list, at most 3584.  X (ncols, R)
+// and Y (rows, R) by element strides; out_scale (rows,) may be null.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int row_spmm_window(int dtype, int k4, int packed,
+                               const void* vals, const void* local,
+                               const void* vec_off, const void* row_map,
+                               const void* wcols, const void* win_off,
+                               const void* win_row, const void* win_rows,
+                               int windows, int max_cols,
+                               const void* X, int64_t sx0, int64_t sx1,
+                               const void* in_scale, const void* out_scale,
+                               void* Y, int64_t sy0, int64_t sy1, int rows,
+                               int R, int lanes, void* stream) {
+  if (rows <= 0 || R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const WinArgs a{vals,
+                  static_cast<const uint16_t*>(local),
+                  static_cast<const int*>(vec_off),
+                  static_cast<const int*>(row_map),
+                  static_cast<const int*>(wcols),
+                  static_cast<const int*>(win_off),
+                  static_cast<const int*>(win_row),
+                  static_cast<const int*>(win_rows),
+                  windows,
+                  max_cols,
+                  static_cast<const float*>(X),
+                  sx0,
+                  sx1,
+                  static_cast<const float*>(in_scale),
+                  static_cast<const float*>(out_scale),
+                  static_cast<float*>(Y),
+                  sy0,
+                  sy1,
+                  R,
+                  lanes,
+                  static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (dtype) {
+    case 0:
+      err = launch_window_modes<float>(k4, packed, a);
+      break;
+    case 1:
+      err = launch_window_modes<__nv_bfloat16>(k4, packed, a);
+      break;
+    case 2:
+      err = launch_window_modes<int8_t>(k4, packed, a);
+      break;
+    case 3:
+      err = launch_window_modes<Nib4>(k4, packed, a);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -42,7 +42,11 @@ LIBRARIES = {
                               _VP, _I, _I, _I, _VP],
                  "row_spmm": [_I, _I, _I, _I, _I, _VP, _VP, _VP, _VP,
                               _VP, _I64, _I64, _VP, _VP, _VP, _I64, _I64, _I,
-                              _I, _I, _I, _VP]},
+                              _I, _I, _I, _VP],
+                 "row_spmm_window": [_I, _I, _I, _VP, _VP, _VP, _VP, _VP,
+                                     _VP, _VP, _VP, _I, _I, _VP, _I64, _I64,
+                                     _VP, _VP, _VP, _I64, _I64, _I, _I, _I,
+                                     _VP]},
     "tile_spmm": {"tile_spmm": [_I, _VP, _VP, _VP, _VP, _VP, _I64, _I64, _VP,
                                 _VP, _VP, _VP, _I64, _I64, _VP, _I, _I, _I,
                                 _I, _I, _I, _VP]},

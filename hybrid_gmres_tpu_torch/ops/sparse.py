@@ -60,6 +60,7 @@ entries a byte (:func:`pack_nibbles`).
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from functools import cached_property
 
@@ -353,6 +354,16 @@ class RowPacked:
     live: int               # stored nonzeros; the rest is padding
     group: int              # source blocks' extent along the columns
     packed4: bool = False   # values as int4 nibble pairs
+    # the window form of the window kernel (:class:`RowWindows`), made with
+    # the form on the card (:meth:`__post_init__`); None on the CPU
+    wins: object = dataclasses.field(default=None, init=False, repr=False,
+                                     compare=False)
+
+    def __post_init__(self):
+        """A form made on, or moved to, the card gets its window form here,
+        so no product builds one (:func:`kept_windows`)."""
+        if self.vals.is_cuda:
+            self.wins = kept_windows(self)
 
     @property
     def dtype(self):
@@ -368,7 +379,8 @@ class RowPacked:
         return unpack_nibbles(self.vals) if self.packed4 else self.vals
 
     def to(self, device) -> "RowPacked":
-        """The same form on ``device`` (itself if it is there already)."""
+        """The same form on ``device`` (itself if it is there already; on
+        the card with its window form made there)."""
         device = torch.device(device)
         if device == self.device:
             return self
@@ -558,6 +570,168 @@ def row_packed_from_bell(bell: BucketedBlockELL,
                           bell.packed4)
     return _pack_rows(row, col, col, vals, m, n, bc, bell.device,
                       bell.packed4)
+
+
+# The window form: what the window kernel (csrc/row_spmv.cu,
+# row_spmm_window) reads beside a row-packed form.  A thread block of
+# WINDOW_THREADS threads holds WINDOW_THREADS / lanes consecutive packed rows,
+# a window; it copies the distinct columns of X that the window reads into
+# shared memory once (8 floats a column, two buffers, one per window in
+# flight), and its lanes gather from there.  WINDOW_MAX_COLS is the most
+# columns one buffer holds: 2 x 32 bytes x 3584 = 224 KB of the 227 KB a
+# block may have (WNT and WIN_COLS in the kernel).  The staging pays for
+# itself with the reads of the staged columns: a form keeps its window form
+# where the windows read each listed column at least WINDOW_MIN_REUSE times
+# (stored slots per listed column).  Measured on CT n=64 and n=128, A, B
+# and their transposes, four storage types, at R=8 (chip_smoke.py's
+# window_kernels, PERF.md section 6): faster than the gathers on every form
+# of reuse 4.3 or more (the ray-row forms, 10-22; at n=64 the pixel-row
+# forms too, 4.3-6.2), slower on n=128's pixel-row forms (reuse 3.3-3.9).
+WINDOW_THREADS = 1024
+WINDOW_MAX_COLS = 3584
+WINDOW_MIN_REUSE = 4.0
+
+
+@dataclass
+class RowWindows:
+    """The windows of a row-packed form (:func:`row_windows_from`).
+
+    The packed rows are taken in the order of the rows they hold
+    (``rows``: the packed row at each place, by ``row_map``): the rows of
+    the source matrix in order, rays or pixels in Morton order, whose
+    neighbours read neighbouring columns.  (The packed order sorts rows by
+    length inside windows of SIGMA, which scatters neighbours wherever
+    lengths differ by an entry.)  Window ``w`` holds the packed rows at
+    places ``win_row[w] .. win_row[w + 1] - 1`` (at most
+    ``rows_per_window``, the rows one thread block holds; fewer where a
+    whole block's rows read more than ``WINDOW_MAX_COLS`` columns) and reads
+    the columns ``wcols[win_off[w] : win_off[w + 1]]``, distinct and
+    ascending.  ``local`` has one entry per stored slot of the row form (the
+    same layout as its ``cols``): the slot's position in its window's list,
+    16 bits (int16 holding unsigned values), so
+    ``wcols[win_off[w] + local] == cols`` on every slot, padding included.
+    The values, offsets, row map and lanes are the row form's own."""
+
+    local: torch.Tensor     # (vectors * VEC,) int16 (uint16 bits)
+    wcols: torch.Tensor     # (listed columns,) int32
+    win_off: torch.Tensor   # (windows + 1,) int32: each window's list
+    win_row: torch.Tensor   # (windows + 1,) int32: each window's places
+    rows: torch.Tensor      # (rows,) int32: the packed row at each place
+    rows_per_window: int    # rows of a full window
+    max_cols: int           # the longest list
+    reuse: float            # stored slots of the form per listed column
+    seconds: float          # the build's wall time
+
+    @property
+    def windows(self):
+        return self.win_off.shape[0] - 1
+
+    @property
+    def listed(self):
+        """Columns staged over all windows: one tile of a product copies
+        this many columns of X into shared memory."""
+        return self.wcols.shape[0]
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for t in
+                   (self.local, self.wcols, self.win_off, self.win_row,
+                    self.rows))
+
+    def slot_windows(self, rp: RowPacked):
+        """The window of every stored slot of ``rp`` (int64)."""
+        nv = (rp.vec_off[1:] - rp.vec_off[:-1]).long()
+        wr = (self.win_row[1:] - self.win_row[:-1]).long()
+        win_of_place = torch.repeat_interleave(
+            torch.arange(wr.shape[0], device=wr.device), wr)
+        win_of_row = torch.empty_like(win_of_place)
+        win_of_row[self.rows.long()] = win_of_place
+        return torch.repeat_interleave(win_of_row, nv).repeat_interleave(VEC)
+
+    def slot_cols(self, rp: RowPacked):
+        """The column of every stored slot of ``rp``, read through its
+        window's list (int64): ``rp.col_index()`` when the form is right."""
+        start = self.win_off.long()[self.slot_windows(rp)]
+        return self.wcols.long()[start + (self.local.long() & 0xFFFF)]
+
+
+def row_windows_from(rp: RowPacked):
+    """The window form of ``rp`` for thread blocks of WINDOW_THREADS, built
+    with torch ops on the form's device.  The packed rows are placed in the
+    order of the rows they hold; a block of ``WINDOW_THREADS // lanes``
+    consecutive places is one window when its rows read at most
+    WINDOW_MAX_COLS distinct columns; otherwise it is cut into equal
+    windows of half, a quarter, ... of its places, the first cut at which
+    each fits.  Returns None when a single row reads more than
+    WINDOW_MAX_COLS columns."""
+    t0 = time.perf_counter()
+    max_cols = WINDOW_MAX_COLS
+    if max_cols > U16_COLS:
+        raise ValueError("window form: local indices are 16-bit")
+    rows, ncols = rp.shape
+    dev = rp.device
+    W = max(WINDOW_THREADS // rp.lanes, 1)
+    nv = (rp.vec_off[1:] - rp.vec_off[:-1]).long()
+    order = torch.argsort(rp.row_map.long())       # place -> packed row
+    place = torch.empty_like(order)
+    place[order] = torch.arange(rows, device=dev)
+    # each vector's place (the windows below are over places)
+    vec_place = place[torch.repeat_interleave(torch.arange(rows, device=dev),
+                                            nv)]
+    cols = rp.col_index().view(-1, VEC)
+    nblk = -(-rows // W)
+    size = torch.zeros(nblk, dtype=torch.long, device=dev)
+    pending = torch.ones(nblk, dtype=torch.bool, device=dev)
+    s = W
+    while True:   # the places of each block's windows: W, W / 2, ...
+        sel = pending[vec_place // W]
+        key = (vec_place[sel] // s)[:, None] * ncols + cols[sel]
+        nsub = -(-rows // s)
+        count = torch.bincount(torch.unique(key) // ncols, minlength=nsub)
+        count = torch.nn.functional.pad(count, (0, nblk * (W // s) - nsub))
+        fits = pending & (count.view(nblk, W // s).amax(1) <= max_cols)
+        size[fits] = s
+        pending &= ~fits
+        if not bool(pending.any()):
+            break
+        if s == 1:
+            return None
+        s //= 2
+    first = torch.arange(nblk, device=dev) * W
+    nwin = -(-torch.clamp(rows - first, max=W) // size)
+    win0 = torch.cumsum(nwin, 0) - nwin
+    p = torch.arange(rows, device=dev)
+    b = p // W
+    win_of_place = win0[b] + (p - first[b]) // size[b]
+    total = int(nwin.sum())
+    win_row = torch.full((total + 1,), rows, dtype=torch.long, device=dev)
+    starts = (p - first[b]) % size[b] == 0
+    win_row[win_of_place[starts]] = p[starts]
+    slot_win = win_of_place[vec_place]
+    key = (slot_win[:, None] * ncols + cols).reshape(-1)
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    count = torch.bincount(uniq // ncols, minlength=total)
+    win_off = torch.zeros(total + 1, dtype=torch.long, device=dev)
+    win_off[1:] = torch.cumsum(count, 0)
+    local = inv - win_off[slot_win].repeat_interleave(VEC)
+    i32 = torch.int32
+    out = RowWindows(
+        local=local.to(i32).to(torch.int16), wcols=(uniq % ncols).to(i32),
+        win_off=win_off.to(i32), win_row=win_row.to(i32), rows=order.to(i32),
+        rows_per_window=W, max_cols=int(count.max()) if total else 0,
+        reuse=rp.cols.numel() / max(uniq.shape[0], 1), seconds=0.0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out.seconds = time.perf_counter() - t0
+    return out
+
+
+def kept_windows(rp: RowPacked):
+    """The window form of ``rp`` (:func:`row_windows_from`) where its
+    windows read each listed column at least WINDOW_MIN_REUSE times, else
+    None: what a form on the card keeps."""
+    wf = row_windows_from(rp)
+    return wf if wf is not None and wf.reuse >= WINDOW_MIN_REUSE else None
 
 
 # The tile form: the matrix as dense TILE x TILE tiles, the A operands of

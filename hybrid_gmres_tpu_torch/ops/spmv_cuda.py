@@ -33,8 +33,11 @@ Counterpart of ``hybrid_gmres_tpu/ops/spmv_pallas.py``.
     ``.matmat_into`` and ``.rmatmat`` run: the same form and walk in the
     same source, each entry read once per tile of 8 right-hand sides, every
     column summed exactly as K1/K3 sum it (column j is their product on
-    column j, bit for bit); :func:`row_matmat_plain` and
-    :func:`row_rmatmat_plain` on a CPU tensor.
+    column j, bit for bit); where :func:`takes_windows` (the form and R),
+    the window kernel (``row_spmm_window``: each thread block's columns of
+    X staged in shared memory from the form's window form, the same
+    sums); :func:`row_matmat_plain` and :func:`row_rmatmat_plain` on a CPU
+    tensor.
   * :func:`wide_matmat` (K2w, K2 for wide right-hand-side blocks) is the
     forward multi-RHS product of large work (``R_WIDE`` columns or more,
     stored entries times columns at least ``WIDE_WORK``) on int8 and int4
@@ -69,6 +72,7 @@ from hybrid_gmres_tpu_torch.ops.sparse import (
     BucketedBlockELL,
     PANEL_ROWS,
     TILE,
+    WINDOW_THREADS,
     RowPacked,
     TilePacked,
     bucketed_block_ell_from_csr,
@@ -615,6 +619,29 @@ def _gather_for(rp: RowPacked, X32, scaled=False):
     return "packed" if _packable(X32) and not scaled else "copy"
 
 
+# The window kernel (csrc/row_spmv.cu, row_spmm_window): each thread block
+# stages the distinct columns of X that its rows read (the form's window
+# form, ``RowPacked.wins``, kept where its windows reuse their columns) in
+# shared memory and gathers from there, a tile of RHS_TILE columns at a
+# time.  Its time is the walk of the windows, not the columns: a tile of
+# at most 4 columns costs it 0.7-0.8 of a full one, the gathers 0.3-0.6.
+# So it takes a product whose last tile holds more than WINDOW_MIN_TAIL
+# columns (R = 5-8, 13-16, ...) and leaves the rest to the gathers.
+# Measured on CT n=64 and n=128, A, B and their transposes, four storage
+# types, at R = 1, 3, 5, 8, 12, 16, 20 (chip_smoke.py's window_kernels) and
+# 8-128 (k2w_sweep; PERF.md section 6).
+WINDOW_MIN_TAIL = 4
+
+
+def takes_windows(rp: RowPacked, R: int) -> bool:
+    """The rule of the multi-RHS products on the card: the window kernel
+    for a form that holds a window form (``rp.wins``, made with the form on
+    the card) where the last tile of ``R`` columns holds more than
+    WINDOW_MIN_TAIL, else :func:`_gather_for`'s gather."""
+    tail = R - RHS_TILE * ((R - 1) // RHS_TILE)
+    return rp.wins is not None and tail > WINDOW_MIN_TAIL
+
+
 def _threads_for(rp: RowPacked, gather):
     """The default block size: 1024 threads for rows of 128 lanes or more,
     and for the strided gather on rows of 32 lanes or more; else 256 (four
@@ -639,13 +666,16 @@ def row_rmatmat_plain(rp: RowPacked, U, scale=None, out_scale=None):
 
 def _row_mm_launch(name, rp: RowPacked, X, in_scale, out_scale, out,
                    gather, threads=None):
-    """Checks, then one launch of ``row_spmm`` in ``csrc/row_spmv.cu``;
-    returns ``Y`` (rows, R) float32: ``out`` itself when it is float32,
-    else a new tensor in the orientation of ``X``.  ``threads``: per block
-    (``BLOCK_THREADS``; None: :func:`_threads_for`).  With an ``in_scale``
-    the kernel runs as K4.  The copy and the launch run under a profiler
-    range named ``name``, which tells K2 from K4 (they share the packed
-    gather's instantiation) and counts the copy with its product."""
+    """Checks, then one launch of ``row_spmm`` or ``row_spmm_window`` in
+    ``csrc/row_spmv.cu``; returns ``(Y, gather)``: ``Y`` (rows, R) float32,
+    ``out`` itself when it is float32, else a new tensor in the orientation
+    of ``X``, and the gather that ran (``"window"``: the window kernel;
+    None: :func:`takes_windows`, else :func:`_gather_for`).  ``threads``:
+    per block (``BLOCK_THREADS``, ``WINDOW_THREADS`` for the window kernel;
+    None: :func:`_threads_for`).  With an ``in_scale`` the kernel runs as
+    K4.  The copy and the launch run under a profiler range named ``name``,
+    which tells K2 from K4 (they share the packed gather's instantiation)
+    and counts the copy with its product."""
     rows, ncols = rp.shape
     if X.ndim != 2:
         raise ValueError(f"{name}: input has shape {tuple(X.shape)}, the "
@@ -666,18 +696,29 @@ def _row_mm_launch(name, rp: RowPacked, X, in_scale, out_scale, out,
     else:
         Y = torch.empty((rows, R), dtype=torch.float32, device=X.device)
     if gather is None:
-        gather = _gather_for(rp, X32, scaled=k4)
-    if gather not in GATHERS and gather != "copy":
+        gather = ("window" if takes_windows(rp, R)
+                  else _gather_for(rp, X32, scaled=k4))
+    if gather not in GATHERS and gather not in ("copy", "window"):
         raise ValueError(f"{name}: gather {gather!r} not in "
-                         f"{sorted(GATHERS) + ['copy']}")
+                         f"{sorted(GATHERS) + ['copy', 'window']}")
     if threads is None:
-        threads = _threads_for(rp, gather)
-    if threads not in BLOCK_THREADS:
+        threads = (WINDOW_THREADS if gather == "window"
+                   else _threads_for(rp, gather))
+    if threads not in ((WINDOW_THREADS,) if gather == "window"
+                       else BLOCK_THREADS):
         raise ValueError(f"{name}: {threads} threads per block not supported")
     if not (rows and R):
-        return Y
+        return Y, gather
     from hybrid_gmres_tpu_torch.ops._build import load_library
 
+    if gather == "window":
+        with torch.profiler.record_function(name):
+            err = _window_launch(load_library("row_spmv"), code, rp, X32,
+                                 scales, Y, k4)
+        if err:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError "
+                               f"{err})")
+        return Y, gather
     with torch.profiler.record_function(name):
         if gather == "copy" or (gather == "packed" and k4):
             # K4's packed gather reads the scaled copy, and no scale
@@ -699,7 +740,30 @@ def _row_mm_launch(name, rp: RowPacked, X, in_scale, out_scale, out,
             rp.lanes, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
-    return Y
+    return Y, gather
+
+
+def _window_launch(lib, code, rp: RowPacked, X32, scales, Y, k4):
+    """One launch of ``row_spmm_window`` on ``rp``'s window form; returns
+    the cudaError_t.  ``X32`` is staged in 16-byte pieces where the packed
+    gather could read it (:func:`_packable`), else through its strides."""
+    wf = rp.wins
+    if wf is None:
+        raise ValueError("row_spmm_window: the form holds no window form")
+    if wf.local.device != X32.device or wf.local.data_ptr() % 16:
+        raise ValueError("row_spmm_window: local indices must be on the "
+                         "input's device, on a 16-byte boundary")
+    rows, _ = rp.shape
+    stream = torch.cuda.current_stream(X32.device).cuda_stream
+    return lib.row_spmm_window(
+        code, int(k4), int(_packable(X32)), rp.vals.data_ptr(),
+        wf.local.data_ptr(), rp.vec_off.data_ptr(), rp.row_map.data_ptr(),
+        wf.wcols.data_ptr(), wf.win_off.data_ptr(), wf.win_row.data_ptr(),
+        wf.rows.data_ptr(), wf.windows, wf.max_cols, X32.data_ptr(),
+        X32.stride(0), X32.stride(1),
+        *(None if s is None else s.data_ptr() for s in scales), Y.data_ptr(),
+        Y.stride(0), Y.stride(1), rows, X32.shape[1], rp.lanes,
+        ctypes.c_void_p(stream))
 
 
 def row_matmat(rp: RowPacked, X, scale=None, out=None, gather=None,
@@ -712,27 +776,31 @@ def row_matmat(rp: RowPacked, X, scale=None, out=None, gather=None,
     orientation (for the transposed view of an (R, ncols) tensor, the
     transposed view of a contiguous (R, rows) one).  ``out``: an (rows, R)
     tensor of ``X``'s device, any strides, written in place when float32.
-    ``gather``: how the kernel reads the tile (``"strided"``, ``"packed"``,
-    or ``"copy"``: an interleaving copy, then packed; None:
-    :func:`_gather_for`) and ``threads`` per block (see
-    :func:`_row_mm_launch`) give the same bits.  Column j equals
+    ``gather``: how the kernel reads X (``"window"``: the window kernel,
+    each block's columns staged in shared memory; ``"strided"``,
+    ``"packed"``, or ``"copy"``: an interleaving copy, then packed; None:
+    :func:`takes_windows`, else :func:`_gather_for`) and ``threads`` per
+    block (see :func:`_row_mm_launch`) give the same bits.  Column j equals
     :func:`row_matvec` on column j bit for bit.  ``row_matmat.launches``
-    counts the launches."""
+    counts the launches, ``row_matmat.window_launches`` those of the window
+    kernel among them."""
     if X.device.type == "cpu":
         Y = row_matmat_plain(rp, X, scale)
         return Y if out is None else out.copy_(Y)
     if X.device.type != "cuda":
         raise ValueError(f"row_matmat: unsupported device {X.device}")
-    Y = _row_mm_launch("row_matmat", rp, X, None, scale, out, gather,
-                       threads)
+    Y, ran = _row_mm_launch("row_matmat", rp, X, None, scale, out, gather,
+                            threads)
     if rp.shape[0] and X.shape[1]:
         row_matmat.launches += 1
+        row_matmat.window_launches += ran == "window"
     if out is not None:
         return out if Y is out else out.copy_(Y)
     return Y.to(X.dtype)
 
 
 row_matmat.launches = 0
+row_matmat.window_launches = 0
 
 
 def row_rmatmat(rp: RowPacked, U, scale=None, out_scale=None, gather=None,
@@ -742,19 +810,22 @@ def row_rmatmat(rp: RowPacked, U, scale=None, out_scale=None, gather=None,
     for a CUDA ``U`` (``scale`` gathered beside ``U``), the plain version
     for a CPU ``U``.  Layouts, ``gather``, ``threads`` and the bits as in
     :func:`row_matmat`: column j equals :func:`row_rmatvec` on column j.
-    ``row_rmatmat.launches`` counts the launches."""
+    ``row_rmatmat.launches`` counts the launches,
+    ``row_rmatmat.window_launches`` those of the window kernel."""
     if U.device.type == "cpu":
         return row_rmatmat_plain(rp, U, scale, out_scale)
     if U.device.type != "cuda":
         raise ValueError(f"row_rmatmat: unsupported device {U.device}")
-    Y = _row_mm_launch("row_rmatmat", rp, U, scale, out_scale, None, gather,
-                       threads)
+    Y, ran = _row_mm_launch("row_rmatmat", rp, U, scale, out_scale, None,
+                            gather, threads)
     if rp.shape[0] and U.shape[1]:
         row_rmatmat.launches += 1
+        row_rmatmat.window_launches += ran == "window"
     return Y.to(U.dtype)
 
 
 row_rmatmat.launches = 0
+row_rmatmat.window_launches = 0
 
 # K2w, the forward multi-RHS product on the tile form (csrc/tile_spmm.cu):
 # the operators route a product there on the card when its form holds int8

@@ -26,7 +26,10 @@ Prints one JSON line per size and mode with:
     multi-RHS products K2r/K4r/K2w are told apart by the profiler range
     their wrapper opens (``row_matmat`` / ``row_rmatmat`` /
     ``wide_matmat``): all device work launched inside it, the interleaving
-    copy and K2w's split and finishing sum included, counts as the product.
+    copy and K2w's split and finishing sum included, counts as the product
+    (the window kernel, ``row_spmm_window_kernel``, counts as K2r/K4r);
+  * ``wrapper_ranges``: per product, its wrapper's ranges in the trace and
+    those that took no device activity (by their place in time order).
 
     python3 scripts_torch/profile_solve.py ab_rtp ba_rtp   # those modes only
 
@@ -74,7 +77,9 @@ RANGES = {"row_matmat": "K2 row_matmat", "row_rmatmat": "K4 row_rmatmat",
 class Ranges:
     """The wrappers' host ranges, and the host launch of each device
     activity (its runtime call, by correlation id): a device activity whose
-    launch lies in a range belongs to that range's kind."""
+    launch lies in a range belongs to that range's kind.  ``hits`` counts
+    the activities each range took, so a range with none (a wrapper call
+    whose launch the trace did not record) can be told apart."""
 
     def __init__(self, trace):
         spans = sorted((ev["ts"], ev["ts"] + ev["dur"], RANGES[ev["name"]])
@@ -89,12 +94,26 @@ class Ranges:
             and ev.get("cat") in ("cuda_runtime", "cuda_driver")
             and "correlation" in ev.get("args", {})}
 
+        self.hits = [0] * len(spans)
+
     def kind(self, ev):
         ts = self.launch_ts.get(ev.get("args", {}).get("correlation"))
         i = bisect.bisect_right(self.starts, ts) - 1 if ts is not None else -1
         if i >= 0 and ts <= self.spans[i][1]:
+            self.hits[i] += 1
             return self.spans[i][2]
         return None
+
+    def empty(self):
+        """Per kind: the ranges that took no device activity, as their
+        places among that kind's ranges in time order, and the ranges."""
+        out = {}
+        for kind in set(RANGES.values()):
+            places = [i for i, (_, _, k) in enumerate(self.spans)
+                      if k == kind]
+            out[kind] = dict(ranges=len(places), without_activity=[
+                j for j, i in enumerate(places) if not self.hits[i]])
+        return out
 
 
 def kind_of(ev, ranges):
@@ -104,7 +123,7 @@ def kind_of(ev, ranges):
     if ev.get("cat") in ("gpu_memcpy", "gpu_memset"):
         return "memcpy/memset"
     name = ev.get("name", "").lower()
-    if "row_spmm_kernel" in name:
+    if "row_spmm_kernel" in name or "row_spmm_window_kernel" in name:
         return "row_spmm outside its wrapper's range"
     if "tile_spmm_kernel" in name or "split_kernel" in name:
         return "tile_spmm outside its wrapper's range"
@@ -171,6 +190,7 @@ def profile(n, mode, run, wall, info):
         "launches_per_iteration": len(events) / chip_smoke.MAXIT,
         "kinds": {k: {"ms": ms, "count": c} for k, (ms, c) in sorted(
             kinds.items(), key=lambda kv: -kv[1][0])},
+        "wrapper_ranges": ranges.empty(),
         "A_panel_mb": info["A_panel_mb"], "B_panel_mb": info["B_panel_mb"]}),
         flush=True)
 

@@ -397,6 +397,10 @@ def test_cpu_path_never_touches_the_kernel_library(monkeypatch):
     assert torch.isfinite(A.matmat(Xw)).all() and A._tiles is None
     assert [k.launches for k in kernels] == before
     assert not _build._LIBS
+    # nor does a CPU form hold a window form (the window kernel's, made
+    # with a form on the card)
+    for op in (A, B):
+        assert op.fwd_rows.wins is None and op.adj_rows.wins is None
 
 
 def _brute_force_index(bell):
